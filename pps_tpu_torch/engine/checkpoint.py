@@ -1,0 +1,216 @@
+"""Checkpoint I/O: reference-pkl-compatible save/load, and the bridge from
+the JAX package's params.
+
+Counterpart of ``pps_tpu/engine/checkpoint.py`` (pkl part).  The container
+is the reference's pickle of ``{'blobs': {name: ndarray}, 'cfg': yaml}``
+holding params, BN running stats (``*_bn_riv`` stores plain variance) and
+``*_momentum`` blobs.  The port's in-memory layout differs from the blobs
+only in the stacked head:
+
+  conv weights       OIHW in the port and in the pkl (no transpose)
+  head combo params  '{combo_prefix}_conv_w' [D,C,1,1] <-> stacked [R][C,D]
+  FC weights         [K, D] <-> stacked [R, D, K]; CRM [K, D] <-> [D, K]
+
+``params_from_numpy`` takes the JAX package's flat dicts (HWIO convs) and
+places them on the model's device; the tests carry identical weights
+across with it.  Orbax and multi-host saving are not ported.
+"""
+
+import logging
+
+import numpy as np
+import torch
+
+from pps_tpu_torch.utils.io import load_object, save_object
+
+logger = logging.getLogger(__name__)
+
+
+def _head_entries(model):
+    """Yield (stacked_key, combo_idx, c2_name, kind) for head params."""
+    prefix = model.head_param_prefix
+    for r, (combo_prefix, _) in enumerate(model.head_spec['combos']):
+        yield prefix + '_conv_w', r, combo_prefix + '_conv_w', 'conv1x1_w'
+        yield prefix + '_conv_b', r, combo_prefix + '_conv_b', 'vec'
+        yield prefix + '_bn_s', r, combo_prefix + '_bn_s', 'vec'
+        yield prefix + '_bn_b', r, combo_prefix + '_bn_b', 'vec'
+        yield prefix + '_fc_w', r, combo_prefix + '_fc_w', 'fc_w'
+        yield prefix + '_fc_b', r, combo_prefix + '_fc_b', 'vec'
+
+
+def _head_state_entries(model):
+    prefix = model.head_param_prefix
+    for r, (combo_prefix, _) in enumerate(model.head_spec['combos']):
+        yield prefix + '_bn_rm', r, combo_prefix + '_bn_rm', 'vec'
+        yield prefix + '_bn_riv', r, combo_prefix + '_bn_riv', 'vec'
+
+
+_CRM_W = ('crm_fc8c_w', 'crm_fc8d_w')
+
+
+def _np(t):
+    return t.detach().to('cpu', torch.float32).numpy()
+
+
+def params_from_numpy(model, params, state):
+    """The JAX package's (params, state) as numpy -> the port's, as float32
+    tensors on ``model.device``.  4-d conv weights go HWIO -> OIHW; the
+    stacked head and the CRM [D, K] weights keep their layout."""
+    def convert(name, a):
+        a = np.asarray(a, np.float32)
+        if a.ndim == 4 and name.endswith('_w'):
+            a = a.transpose(3, 2, 0, 1)
+        return torch.tensor(np.ascontiguousarray(a), device=model.device)
+    return ({k: convert(k, v) for k, v in params.items()},
+            {k: convert(k, v) for k, v in state.items()})
+
+
+def params_to_blobs(model, params, state=None):
+    """The port's (params[, state]) -> a reference blob dict of numpy."""
+    blobs = {}
+    head_keys = {k for k, _, _, _ in _head_entries(model)}
+    for name, t in params.items():
+        if name in head_keys:
+            continue  # handled stacked below
+        a = _np(t)
+        blobs[name] = np.ascontiguousarray(a.T) if name in _CRM_W else a
+    for key, r, c2_name, kind in _head_entries(model):
+        blobs[c2_name] = _stacked_to_c2(_np(params[key][r]), kind)
+    if state is not None:
+        head_state_keys = {k for k, _, _, _ in _head_state_entries(model)}
+        for name, t in state.items():
+            if name not in head_state_keys:
+                blobs[name] = _np(t)
+        for key, r, c2_name, _ in _head_state_entries(model):
+            blobs[c2_name] = _np(state[key][r])
+    return blobs
+
+
+def _stacked_to_c2(a, kind):
+    if kind == 'conv1x1_w':  # stacked [C, D] -> c2 [D, C, 1, 1]
+        return np.ascontiguousarray(a.T)[:, :, None, None]
+    if kind == 'fc_w':  # stacked [D, K] -> c2 [K, D]
+        return np.ascontiguousarray(a.T)
+    return a
+
+
+def _c2_to_stacked(a, kind):
+    if kind == 'conv1x1_w':
+        return np.ascontiguousarray(a[:, :, 0, 0].T)
+    if kind == 'fc_w':
+        return np.ascontiguousarray(a.T)
+    return a
+
+
+def blobs_to_params(model, blobs, params, state):
+    """Load a reference blob dict into copies of (params, state).
+
+    Name-matched and shape-checked like the reference loader; missing
+    blobs keep their current values, unknown blobs are ignored with a log
+    line.  Returns (params, state, matched names).
+    """
+    params = dict(params)
+    state = dict(state)
+    matched = set()
+
+    def _try_set(tree, name, value):
+        cur = tree[name]
+        if tuple(cur.shape) != tuple(value.shape):
+            raise ValueError(
+                'Shape mismatch for {}: checkpoint {} vs model {}'.format(
+                    name, value.shape, tuple(cur.shape)))
+        tree[name] = torch.tensor(np.ascontiguousarray(value),
+                                  dtype=torch.float32, device=cur.device)
+
+    head = {c2: (key, r, kind) for key, r, c2, kind in _head_entries(model)}
+    head_state = {
+        c2: (key, r, kind) for key, r, c2, kind in _head_state_entries(model)}
+
+    # stacked head params are assembled on the host, then written once
+    stacked_new = {}
+
+    def _stacked(tree, key):
+        if key not in stacked_new:
+            stacked_new[key] = (tree, _np(tree[key]).copy())
+        return stacked_new[key][1]
+
+    for c2_name, arr in blobs.items():
+        arr = np.asarray(arr, dtype=np.float32)
+        if c2_name in head:
+            key, r, kind = head[c2_name]
+            _stacked(params, key)[r] = _c2_to_stacked(arr, kind)
+            matched.add(c2_name)
+        elif c2_name in head_state:
+            key, r, _ = head_state[c2_name]
+            _stacked(state, key)[r] = arr
+            matched.add(c2_name)
+        elif c2_name in _CRM_W and c2_name in params:
+            _try_set(params, c2_name, arr.T)
+            matched.add(c2_name)
+        elif c2_name in params:
+            _try_set(params, c2_name, arr)
+            matched.add(c2_name)
+        elif c2_name in state:
+            _try_set(state, c2_name, arr)
+            matched.add(c2_name)
+        elif not c2_name.endswith('_momentum'):
+            logger.info('Ignoring checkpoint blob with no model match: %s',
+                        c2_name)
+    for key, (tree, arr) in stacked_new.items():
+        tree[key] = torch.tensor(arr, device=tree[key].device)
+    return params, state, matched
+
+
+def save_checkpoint(path, model, params, state, cfg=None):
+    """Write a reference-compatible weights pickle.
+
+    Blobs preserved by ``load_checkpoint`` (present in the file, unused by
+    the model) are re-emitted, so load -> save is lossless; live model
+    blobs win a name collision."""
+    blobs = params_to_blobs(model, params, state)
+    preserved = getattr(model, '_preserved_blobs', {})
+    n_pres = 0
+    for name, arr in preserved.items():
+        if name not in blobs:
+            blobs[name] = arr
+            n_pres += 1
+    if n_pres:
+        logger.info('Re-emitting %d preserved (model-unused) blobs', n_pres)
+    payload = {'blobs': blobs}
+    if cfg is not None:
+        import yaml
+        payload['cfg'] = yaml.dump(_plain(dict(cfg)))
+    save_object(payload, path)
+    logger.info('Wrote checkpoint: %s (%d blobs)', path, len(blobs))
+
+
+def _plain(obj):
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, (np.floating, np.integer)):
+        return obj.item()
+    return obj
+
+
+def load_checkpoint(path, model, params, state):
+    """Load weights from a pickle (ours, the JAX package's or the
+    reference's, including the backbone-only ImageNet bootstrap).
+    Returns (params, state).  Momentum blobs are skipped: the port has no
+    optimizer yet."""
+    payload = load_object(path)
+    blobs = payload.get('blobs', payload)
+    weight_blobs = {k: v for k, v in blobs.items()
+                    if not k.endswith('_momentum')}
+    params, state, matched = blobs_to_params(model, weight_blobs, params,
+                                             state)
+    logger.info('Loaded %d/%d checkpoint blobs from %s', len(matched),
+                len(weight_blobs), path)
+    # unmatched blobs ride on the model and are re-emitted on save
+    model._preserved_blobs = {k: np.asarray(v)
+                              for k, v in weight_blobs.items()
+                              if k not in matched and v is not None}
+    return params, state

@@ -1,0 +1,43 @@
+"""Pairwise distance ops (counterpart of ``pps_tpu/ops/distance.py``).
+
+The expand formula ``|x|^2 + |y|^2 - 2 x.y^T`` puts the O(N M D) work in
+one float32 matrix product (full float32 on the card: no TF32, see
+``device.py``).
+"""
+
+import torch
+
+# outputs up to this many elements (1 GB of float32) are one product
+SINGLE_BLOCK_MAX_ELEMS = 1 << 28
+
+
+def pairwise_sq_dist(x, y=None):
+    """Z[p, q] = ||x_p - y_q||^2, shape [N, M]; y defaults to x."""
+    if y is None:
+        y = x
+    xx = torch.sum(x * x, dim=1, keepdim=True)
+    yy = torch.sum(y * y, dim=1, keepdim=True)
+    return xx + yy.T - 2.0 * (x @ y.T)
+
+
+def euclidean_distmat(q, g, block_q=1024):
+    """Euclidean distance matrix [Nq, Ng]: sqrt of the expand formula
+    clamped at 0 (the reference evaluator's compute_dist semantics).
+
+    Above ``SINGLE_BLOCK_MAX_ELEMS`` output elements the queries go in
+    blocks of ``block_q`` so only one [block_q, Ng] set of intermediates
+    lives at a time."""
+    gg = torch.sum(g * g, dim=1)
+
+    def one_block(qb):
+        sq = torch.sum(qb * qb, dim=1, keepdim=True)
+        d2 = sq + gg[None, :] - 2.0 * (qb @ g.T)
+        return torch.sqrt(torch.clamp(d2, min=0.0))
+
+    nq, ng = q.shape[0], g.shape[0]
+    if nq * ng <= SINGLE_BLOCK_MAX_ELEMS:
+        return one_block(q)
+    out = torch.empty((nq, ng), dtype=torch.float32, device=q.device)
+    for s in range(0, nq, block_q):
+        out[s:s + block_q] = one_block(q[s:s + block_q])
+    return out

@@ -1,0 +1,98 @@
+"""Batched feature extraction on one device.
+
+Counterpart of ``pps_tpu/parallel/eval_step.py`` without the mesh: images
+are batched, the tail batch is padded by repeating its last row and the
+pad rows are dropped, and the next batch's host-to-device copy overlaps
+the current batch's compute.  Multi-GPU extraction waits for ROADMAP
+slice 8.
+"""
+
+import numpy as np
+import torch
+
+from pps_tpu_torch.data.device_preprocess import preprocess_on_device
+from pps_tpu_torch.device import resolve_device
+
+
+def make_extract_fn(model, flip_tta=False, device_preproc=None, device=None):
+    """(params, state, images[B,H,W,3] tensor) -> [B, E] float32 tensor.
+
+    flip_tta: average the embeddings of the image and its horizontal flip,
+      then L2-renormalise (the TEST.BBOX_AUG.H_FLIP analog).
+    device_preproc: optional (pixel_means, out_hw); the images are then raw
+      uint8 decodes and the cast, mean subtraction and cv2-exact bicubic
+      resize run on the device.
+    device: must be the model's device (default CUDA).
+    """
+    device = resolve_device(device)
+    if device != model.device:
+        raise ValueError('extract fn on {} for a model on {}'.format(
+            device, model.device))
+
+    @torch.no_grad()
+    def extract(params, state, images):
+        if device_preproc is not None:
+            means, out_hw = device_preproc
+            images = preprocess_on_device(images, means, out_hw)
+        feats = model.extract_features(params, state, images)
+        if flip_tta:
+            feats_f = model.extract_features(params, state,
+                                             torch.flip(images, dims=(2,)))
+            feats = (feats + feats_f) * 0.5
+            norm = torch.linalg.norm(feats, dim=1, keepdim=True)
+            feats = feats / torch.clamp(norm, min=1e-12)
+        return feats
+
+    extract.device = device
+    return extract
+
+
+def extract_features(extract_fn, params, state, images, batch_size):
+    """Drive ``extract_fn`` over a numpy image stack [N, H, W, 3].
+
+    The tail batch is padded to ``batch_size`` by repeating its last row,
+    then the pad rows are dropped.  On the card each batch goes through
+    pinned host memory on a side stream, issued before the current batch's
+    result is fetched, so the copy overlaps compute.  Returns [N, E]
+    float32 numpy.
+    """
+    device = extract_fn.device
+    n = images.shape[0]
+    cuda = device.type == 'cuda'
+    copy_stream = torch.cuda.Stream(device) if cuda else None
+
+    def put(start):
+        chunk = images[start:start + batch_size]
+        pad = batch_size - chunk.shape[0]
+        if pad:
+            chunk = np.concatenate(
+                [chunk, np.repeat(chunk[-1:], pad, axis=0)], axis=0)
+        host = torch.from_numpy(np.ascontiguousarray(chunk))
+        if not cuda:
+            return host, pad
+        with torch.cuda.stream(copy_stream):
+            dev = host.pin_memory().to(device, non_blocking=True)
+        return dev, pad
+
+    starts = list(range(0, n, batch_size))
+    out = []
+    pending = None  # (feats tensor, pad)
+    next_dev = put(starts[0]) if starts else None
+    for i in range(len(starts)):
+        dev, pad = next_dev
+        if cuda:
+            # compute waits for this batch's copy; the caching allocator
+            # must not hand its memory back before compute has used it
+            torch.cuda.current_stream(device).wait_stream(copy_stream)
+            dev.record_stream(torch.cuda.current_stream(device))
+        feats = extract_fn(params, state, dev)  # queued, not waited on
+        if i + 1 < len(starts):
+            next_dev = put(starts[i + 1])       # overlap H2D with compute
+        if pending is not None:
+            pf, ppad = pending
+            out.append(pf.cpu().numpy()[:batch_size - ppad])
+        pending = (feats, pad)
+    if pending is not None:
+        pf, ppad = pending
+        out.append(pf.cpu().numpy()[:batch_size - ppad])
+    return np.concatenate(out, axis=0) if out else np.zeros((0,))
