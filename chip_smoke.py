@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving path and train step once on one CUDA
+card.
 
     python3 chip_smoke.py        # from the repo root, on a GPU host
 
@@ -22,14 +23,25 @@ is non-zero:
               each held against a brute-force search on the card.
 6. profile  - torch.profiler over 4 extraction batches: device time by
               kernel (the full table goes to stderr).
+7. train    - the flagship train step (uint8 augmentation on the card,
+              R-50 with train-mode BN, PPS head with dropout, 31 CE + CRM
+              + 0.14 x triplet, backward, Caffe2 momentum-SGD) at batch
+              P 8 x K 8 = 64: 3 warm-up and 20 timed steps on the same
+              images (loss finite and falling, BN stats and momentum
+              moved), one step at loss_scale_factor 0, a json_stats line,
+              and a pkl checkpoint round trip (bitwise).
+8. train_agree - one step at full width and depth, P 4 x K 2, the same
+              draws on both sides: card f32 vs CPU f32, card bf16 vs f32.
+9. profile_train - torch.profiler over 2 train steps (table to stderr).
 
 Then a {"kernels": [...]} line (launches counted while the main path,
-phases 3 and 5, ran), the nvidia-smi line, and last
+phases 3, 5 and 7, ran), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -43,10 +55,28 @@ REQUESTS = (1, 4, 16)     # images per request
 REPEATS = 5               # requests of each size, per index
 TOPK = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+BF16_PEAK_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak (MFU)
+TRAIN_P, TRAIN_K = 8, 8    # the flagship's P x K batch
+WARMUP_STEPS, TIMED_STEPS = 3, 20
+MARKET_TRAIN_IMAGES = 12936  # Market-1501 train split: the epoch size
 
 # tolerances, each with its reason
 F32_RTOL, F32_ATOL = 1e-3, 2e-4   # card f32 vs CPU f32: sums in another
 #   order through 53 convs; the bound the JAX package's torch parity uses
+TRAIN_LOSS_RTOL = 1e-4            # card f32 vs CPU f32 train loss: a
+#   forward value, sums in another order (port vs JAX package on the CPU:
+#   2e-6)
+TRAIN_REL, TRAIN_FLOOR = 0.05, 0.02  # card vs CPU after one step: each
+#   tensor's displacement and momentum by RMS error against its own RMS,
+#   plus 2% of the RMS over all params (updates that are zero by a BN
+#   invariance are noise); from residual-branch BN scales of 0.01, where
+#   the gradient is well conditioned (port vs JAX package on the CPU: 0.7%)
+TRAIN_STATE_REL = 1e-3            # BN running stats after one step, by
+#   RMS (port vs JAX package on the CPU: 7e-6)
+BF16_LOSS_RTOL = 1e-3             # card bf16 vs f32 train loss: at a
+#   fresh init the 31 CE terms sit near ln(751) whatever the features, so
+#   ~1% of bf16 feature noise (see below) moves the loss far less than
+#   0.1% (measured on an H100: 4e-6)
 BF16_MIN_COS = 0.99               # bf16 keeps 8 mantissa bits (~0.4% per
 #   rounding); ~160 roundings through the body add up to about a percent
 #   of the embedding, a cosine of ~0.9999, so 0.99 flags a real fault
@@ -174,6 +204,7 @@ def phase_extract(dev, gallery):
     from pps_tpu_torch.models.model import build_model
     from pps_tpu_torch.parallel.eval_step import (make_extract_fn,
                                                   extract_features)
+    from pps_tpu_torch.utils.flops import model_fwd_flops
     cfg = flagship_cfg()
     model = build_model(cfg, device=dev)
     params, state = model.init(torch.Generator().manual_seed(0))
@@ -200,10 +231,13 @@ def phase_extract(dev, gallery):
     if not np.allclose(norms, 1.0, atol=1e-3):
         raise AssertionError('norms off 1: {}'.format(
             norms[np.abs(norms - 1) > 1e-3][:4]))
+    tflops = model_fwd_flops(cfg) * GALLERY / seconds / 1e12
     emit('extract', images=GALLERY, batch=BATCH, dim=int(feats.shape[1]),
          dtype=cfg.MODEL.DTYPE, input_hw=[h, w], raw_hw=list(RAW_HW),
          seconds=seconds, imgs_per_s=GALLERY / seconds,
-         host_seconds=host_seconds,
+         host_seconds=host_seconds, fwd_gflop_per_img=model_fwd_flops(cfg)
+         / 1e9, tflops=tflops, mfu=tflops * 1e12 / BF16_PEAK_FLOPS,
+         mfu_peak='989 TFLOP/s dense bf16 (H100 SXM)',
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return cfg, model, params, state, feats
 
@@ -337,6 +371,15 @@ def phase_profile(dev, model, params, state, gallery, cfg):
         extract_features(fn, params, state, imgs, BATCH)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    rows, device_us = profile_rows(prof)
+    emit('profile', batches=4, wall_ms=wall * 1e3,
+         device_ms=device_us / 1e3,
+         idle_share=max(0.0, 1 - device_us / 1e6 / wall), top=rows)
+
+
+def profile_rows(prof):
+    """Print the profiler's table to stderr; return the top-15 kernel rows
+    [name, device ms, count] and the total kernel time in us."""
     from torch.autograd import DeviceType
     avgs = prof.key_averages()
     attr = ('self_device_time_total' if hasattr(avgs[0],
@@ -348,11 +391,240 @@ def phase_profile(dev, model, params, state, gallery, cfg):
     device_us = sum(getattr(e, attr) for e in rows)
     print(avgs.table(sort_by=attr, row_limit=30), file=sys.stderr,
           flush=True)
-    emit('profile', batches=4, wall_ms=wall * 1e3,
+    return ([[e.key[:80], getattr(e, attr) / 1e3, e.count]
+             for e in rows[:15]], device_us)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def train_batch(gallery, p, k, num_classes, dev):
+    """P identities x K images from the gallery decodes, every other image
+    flipped, labels on a P x K pattern, all on ``dev``."""
+    import torch
+    n = p * k
+    labels = np.repeat(np.arange(p) * 7 + 3, k)
+    oh = np.zeros((n, num_classes - 1), np.float32)
+    oh[np.arange(n), labels] = 1.0
+    return {'data_u8': torch.from_numpy(gallery[:n].copy()).to(dev),
+            'flipped': torch.from_numpy(np.arange(n) % 2 == 1).to(dev),
+            'labels_int32': torch.from_numpy(labels.astype(np.int32)).to(dev),
+            'labels_oh': torch.from_numpy(oh).to(dev)}
+
+
+def make_trainer(cfg, dev, seed, residual_gamma=1.0):
+    """(model, step, train_state) for ``cfg`` on ``dev`` from a seeded
+    init; ``residual_gamma`` scales each residual branch's last BN."""
+    import torch
+    from pps_tpu_torch.models.model import build_model
+    from pps_tpu_torch.parallel.train_step import make_train_step
+    from pps_tpu_torch.solver import optimizer as opt
+    model = build_model(cfg, device=dev)
+    params, state = model.init(torch.Generator().manual_seed(seed))
+    params = {k: v * residual_gamma if k.endswith('_branch2c_bn_s') else v
+              for k, v in params.items()}
+    step = make_train_step(model, cfg, opt.make_param_meta(params, cfg),
+                           trainable=opt.trainable_from_cfg(cfg, params),
+                           device=dev)
+    return model, step, {'params': params, 'state': state,
+                         'opt': opt.init_opt_state(params)}
+
+
+def phase_train(dev, gallery):
+    """The flagship train step at batch 64: time, gates, json_stats and a
+    checkpoint round trip."""
+    import torch
+    from pps_tpu_torch.engine.stats import TrainingStats
+    from pps_tpu_torch.flagship import flagship_cfg
+    from pps_tpu_torch.solver.lr_policy import get_lr_at_iter
+    from pps_tpu_torch.utils.flops import model_fwd_flops
+    cfg = flagship_cfg()
+    n = TRAIN_P * TRAIN_K
+    model, step, ts = make_trainer(cfg, dev, seed=0)
+    init = ts
+    batch = train_batch(gallery, TRAIN_P, TRAIN_K, cfg.MODEL.NUM_CLASSES,
+                        dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ep_size = MARKET_TRAIN_IMAGES // n
+    stats = TrainingStats(WARMUP_STEPS + TIMED_STEPS, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, events = [], []
+    for it in range(WARMUP_STEPS + TIMED_STEPS):
+        lr = float(get_lr_at_iter(cfg, it, 0, ep_size))
+        if it >= WARMUP_STEPS:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        stats.IterTic()
+        ts, logs = step(ts, batch, lr, 1.0, gen)
+        stats.IterToc()  # host time to queue the step
+        losses.append(logs['loss'])
+        stats.UpdateIterStats(logs)
+    events.append(torch.cuda.Event(enable_timing=True))
+    events[-1].record()
+    events[-1].synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats.LogIterStats(WARMUP_STEPS + TIMED_STEPS - 1, lr, force=True)
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError('non-finite train loss: {}'.format(losses))
+    timed = losses[WARMUP_STEPS:]
+    first5, last5 = float(timed[:5].mean()), float(timed[-5:].mean())
+    if not last5 < first5:
+        raise AssertionError('loss did not fall: first 5 {} last 5 {}'.format(
+            first5, last5))
+    moved_state = sum(not torch.equal(ts['state'][k], init['state'][k])
+                      for k in init['state'])
+    moved_mom = sum(bool(v.any()) for v in ts['opt']['momentum'].values())
+    if moved_state != len(init['state']) or moved_mom == 0:
+        raise AssertionError('state moved {}/{}, momentum {}'.format(
+            moved_state, len(init['state']), moved_mom))
+    # the triplet term off (TRIPLET_LOSS_CROSS's other epoch type)
+    ts0, logs0 = step(ts, batch, lr, 0.0, gen)
+    loss0 = float(logs0['loss'])
+    if not np.isfinite(loss0) or float(logs0['pps01234_triplet_loss']) != 0:
+        raise AssertionError('loss_scale_factor 0 step: {}'.format(loss0))
+    ckpt = checkpoint_round_trip(model, cfg, ts)
+    ms = float(np.median(step_ms))
+    tflops = 3 * model_fwd_flops(cfg) * n / (ms / 1e3) / 1e12
+    emit('train', batch=n, p=TRAIN_P, k=TRAIN_K, dtype=cfg.MODEL.DTYPE,
+         steps=TIMED_STEPS, warmup=WARMUP_STEPS, ms_per_step=ms,
+         ms_min=min(step_ms), ms_max=max(step_ms), imgs_per_s=n / ms * 1e3,
+         train_gflop_per_img=3 * model_fwd_flops(cfg) / 1e9, tflops=tflops,
+         mfu=tflops * 1e12 / BF16_PEAK_FLOPS,
+         mfu_peak='989 TFLOP/s dense bf16 (H100 SXM)', peak_mem_gb=peak_gb,
+         loss_first5=first5, loss_last5=last5,
+         losses=[float(v) for v in losses], loss_lsf0=loss0,
+         lr_last=lr, state_moved=moved_state, momentum_moved=moved_mom,
+         checkpoint=ckpt)
+    return step, ts, batch
+
+
+def checkpoint_round_trip(model, cfg, ts):
+    """Save (params, state, momentum) as a pkl, load it into zeroed
+    copies, and require every tensor back bit for bit."""
+    import torch
+    from pps_tpu_torch.engine import checkpoint as ck
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'build', 'chip_smoke_train.pkl')
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    ck.save_checkpoint(path, model, ts['params'], ts['state'],
+                       opt_state=ts['opt'], cfg=cfg)
+    save_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(path) / 1e6
+
+    def zeros(tree):
+        return {k: torch.zeros_like(v) for k, v in tree.items()}
+    t0 = time.perf_counter()
+    p, s, o = ck.load_checkpoint(path, model, zeros(ts['params']),
+                                 zeros(ts['state']),
+                                 opt_state={'momentum': zeros(
+                                     ts['params'])})
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    for got, want in ((p, ts['params']), (s, ts['state']),
+                      (o['momentum'], ts['opt']['momentum'])):
+        for k in want:
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError('checkpoint round trip: {}'.format(k))
+    return {'bitwise': True, 'tensors': len(p) + len(s) + len(o['momentum']),
+            'mb': size_mb, 'save_s': save_s, 'load_s': load_s}
+
+
+def _rms(t):
+    import torch
+    return float(torch.sqrt(torch.mean(t.double().cpu() ** 2)))
+
+
+def phase_train_agree(dev, gallery):
+    """One step at full width and depth, P 4 x K 2, the same draws on both
+    sides: card f32 vs CPU f32 (loss, params, BN state, momentum) and card
+    bf16 vs card f32 (loss)."""
+    import torch
+    from pps_tpu_torch.data import device_augment as aug
+    from pps_tpu_torch.flagship import flagship_cfg
+    p, k = 4, 2
+    cfg32 = flagship_cfg(dtype='float32', ims_per_batch=p * k, p=p, k=k)
+    spec = aug.augment_spec(cfg32)
+    gen = torch.Generator().manual_seed(1)
+    draws = {'augment': aug.sample_params(gen, spec, p * k, RAW_HW,
+                                          torch.device('cpu')),
+             'dropout_mask': torch.rand(p * k, 31, 128, generator=gen) < 0.8}
+    out = {}
+    for name, where, dtype in (('cpu', 'cpu', 'float32'),
+                               ('card', dev, 'float32'),
+                               ('card_bf16', dev, 'bfloat16')):
+        cfg = flagship_cfg(dtype=dtype, ims_per_batch=p * k, p=p, k=k)
+        where = torch.device(where)
+        _, step, ts = make_trainer(cfg, where, seed=1, residual_gamma=0.01)
+        start = {n: v.cpu() for n, v in ts['params'].items()}
+        t0 = time.perf_counter()
+        new, logs = step(
+            ts, train_batch(gallery, p, k, cfg.MODEL.NUM_CLASSES, where),
+            0.01, 1.0, None,
+            draws={'augment': {n: v.to(where) for n, v in
+                               draws['augment'].items()},
+                   'dropout_mask': draws['dropout_mask'].to(where)})
+        out[name] = (new, float(logs['loss']), time.perf_counter() - t0)
+    flagship_cfg()  # the global cfg back to the bf16 flagship
+    (cn, closs, cpu_s), (gn, gloss, _), (_, bloss, _) =         out['cpu'], out['card'], out['card_bf16']
+    loss_rel = abs(gloss - closs) / abs(closs)
+    if loss_rel > TRAIN_LOSS_RTOL:
+        raise AssertionError('card f32 loss {} vs cpu {}'.format(gloss,
+                                                                 closs))
+    disp = {n: cn['params'][n] - start[n] for n in start}
+    floor = TRAIN_FLOOR * _rms(torch.cat([d.flatten()
+                                          for d in disp.values()]))
+    worst = {'params': 0.0, 'momentum': 0.0, 'state': 0.0}
+    for n in start:
+        d_g = gn['params'][n].cpu() - start[n]
+        e = _rms(d_g - disp[n]) / (_rms(disp[n]) + floor / TRAIN_REL)
+        m_c, m_g = cn['opt']['momentum'][n], gn['opt']['momentum'][n].cpu()
+        em = _rms(m_g - m_c) / (_rms(m_c) + floor / TRAIN_REL)
+        worst['params'] = max(worst['params'], e)
+        worst['momentum'] = max(worst['momentum'], em)
+        if e > TRAIN_REL or em > TRAIN_REL:
+            raise AssertionError('card vs cpu after one step: {} ({}, {})'
+                                 .format(n, e, em))
+    for n in cn['state']:
+        e = _rms(gn['state'][n].cpu() - cn['state'][n]) / _rms(
+            cn['state'][n])
+        worst['state'] = max(worst['state'], e)
+        if e > TRAIN_STATE_REL:
+            raise AssertionError('card vs cpu BN state: {} ({})'.format(n, e))
+    bf16_rel = abs(bloss - gloss) / abs(gloss)
+    if bf16_rel > BF16_LOSS_RTOL:
+        raise AssertionError('bf16 loss {} vs f32 {}'.format(bloss, gloss))
+    emit('train_agree', batch=p * k, loss_cpu=closs, loss_card=gloss,
+         loss_card_bf16=bloss, f32_loss_rel=loss_rel,
+         f32_loss_rtol=TRAIN_LOSS_RTOL, worst_rel=worst,
+         rel=TRAIN_REL, floor=TRAIN_FLOOR, state_rel=TRAIN_STATE_REL,
+         bf16_loss_rel=bf16_rel, bf16_loss_rtol=BF16_LOSS_RTOL,
+         residual_gamma=0.01, cpu_step_s=cpu_s)
+
+
+def phase_profile_train(dev, step, ts, batch):
+    """torch.profiler over 2 train steps: device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ts, _ = step(ts, batch, 0.001, 1.0, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            ts, _ = step(ts, batch, 0.001, 1.0, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, device_us = profile_rows(prof)
+    emit('profile_train', steps=2, wall_ms=wall * 1e3,
          device_ms=device_us / 1e3,
-         idle_share=max(0.0, 1 - device_us / 1e6 / wall),
-         top=[[e.key[:80], getattr(e, attr) / 1e3, e.count]
-              for e in rows[:15]])
+         idle_share=max(0.0, 1 - device_us / 1e6 / wall), top=rows)
 
 
 def main():
@@ -381,6 +653,18 @@ def main():
     launches['zero_even'] += ze.launches
 
     phase_profile(dev, model, params, state, gallery, cfg)
+    del model, params, state, feats
+    torch.cuda.empty_cache()
+
+    # main path, part 3: the train step
+    ze.launches = 0
+    step, ts, batch = phase_train(dev, gallery)
+    launches['zero_even'] += ze.launches
+
+    phase_profile_train(dev, step, ts, batch)
+    del step, ts, batch
+    torch.cuda.empty_cache()
+    phase_train_agree(dev, gallery)
 
     for k in kernels:
         k['launches'] = launches[k['name']]

@@ -11,9 +11,11 @@ only in the stacked head:
   head combo params  '{combo_prefix}_conv_w' [D,C,1,1] <-> stacked [R][C,D]
   FC weights         [K, D] <-> stacked [R, D, K]; CRM [K, D] <-> [D, K]
 
-``params_from_numpy`` takes the JAX package's flat dicts (HWIO convs) and
-places them on the model's device; the tests carry identical weights
-across with it.  Orbax and multi-host saving are not ported.
+``params_from_numpy`` takes the JAX package's flat dicts (HWIO convs), and
+optionally its optimizer state, and places them on the model's device;
+the tests carry identical weights across with it.  ``*_momentum`` blobs
+are written from and read into ``opt_state['momentum']``.  Orbax and
+multi-host saving are not ported.
 """
 
 import logging
@@ -52,17 +54,30 @@ def _np(t):
     return t.detach().to('cpu', torch.float32).numpy()
 
 
-def params_from_numpy(model, params, state):
+def params_from_numpy(model, params, state, opt_state=None):
     """The JAX package's (params, state) as numpy -> the port's, as float32
     tensors on ``model.device``.  4-d conv weights go HWIO -> OIHW; the
-    stacked head and the CRM [D, K] weights keep their layout."""
+    stacked head and the CRM [D, K] weights keep their layout.
+
+    With ``opt_state`` (the JAX package's optimizer state: 'momentum' and,
+    for the 'iter' flavor, 'acmgrad' and 'count') the result is a triple
+    (params, state, opt_state); the param-shaped trees convert as params
+    do and the step count becomes an int32 0-d tensor."""
     def convert(name, a):
         a = np.asarray(a, np.float32)
         if a.ndim == 4 and name.endswith('_w'):
             a = a.transpose(3, 2, 0, 1)
         return torch.tensor(np.ascontiguousarray(a), device=model.device)
-    return ({k: convert(k, v) for k, v in params.items()},
-            {k: convert(k, v) for k, v in state.items()})
+
+    def tree(t):
+        return {k: convert(k, v) for k, v in t.items()}
+    if opt_state is None:
+        return tree(params), tree(state)
+    opt = {k: (tree(v) if isinstance(v, dict) else
+               torch.tensor(np.asarray(v), dtype=torch.int32,
+                            device=model.device))
+           for k, v in opt_state.items()}
+    return tree(params), tree(state), opt
 
 
 def params_to_blobs(model, params, state=None):
@@ -161,13 +176,18 @@ def blobs_to_params(model, blobs, params, state):
     return params, state, matched
 
 
-def save_checkpoint(path, model, params, state, cfg=None):
-    """Write a reference-compatible weights pickle.
+def save_checkpoint(path, model, params, state, opt_state=None, cfg=None):
+    """Write a reference-compatible weights pickle, with a
+    ``{name}_momentum`` blob per param when ``opt_state`` is given.
 
     Blobs preserved by ``load_checkpoint`` (present in the file, unused by
     the model) are re-emitted, so load -> save is lossless; live model
     blobs win a name collision."""
     blobs = params_to_blobs(model, params, state)
+    if opt_state is not None and 'momentum' in opt_state:
+        for name, arr in params_to_blobs(model,
+                                         opt_state['momentum']).items():
+            blobs[name + '_momentum'] = arr
     preserved = getattr(model, '_preserved_blobs', {})
     n_pres = 0
     for name, arr in preserved.items():
@@ -196,11 +216,11 @@ def _plain(obj):
     return obj
 
 
-def load_checkpoint(path, model, params, state):
-    """Load weights from a pickle (ours, the JAX package's or the
-    reference's, including the backbone-only ImageNet bootstrap).
-    Returns (params, state).  Momentum blobs are skipped: the port has no
-    optimizer yet."""
+def load_checkpoint(path, model, params, state, opt_state=None):
+    """Load weights (+ momentum when ``opt_state`` is given) from a pickle:
+    ours, the JAX package's or the reference's, including the
+    backbone-only ImageNet bootstrap.  Returns (params, state, opt_state);
+    momentum blobs are never preserved."""
     payload = load_object(path)
     blobs = payload.get('blobs', payload)
     weight_blobs = {k: v for k, v in blobs.items()
@@ -213,4 +233,12 @@ def load_checkpoint(path, model, params, state):
     model._preserved_blobs = {k: np.asarray(v)
                               for k, v in weight_blobs.items()
                               if k not in matched and v is not None}
-    return params, state
+    if opt_state is not None:
+        mom_blobs = {k[:-len('_momentum')]: v for k, v in blobs.items()
+                     if k.endswith('_momentum')}
+        if mom_blobs:
+            mom, _, _ = blobs_to_params(model, mom_blobs,
+                                        opt_state['momentum'], {})
+            opt_state = dict(opt_state)
+            opt_state['momentum'] = mom
+    return params, state, opt_state

@@ -1,5 +1,6 @@
 """Part heads: strip splits, power-set combos, strip pooling, the stacked
-per-combo embedding head (eval mode) and the test embedding.
+per-combo embedding head (eval and train mode), CRM and the test
+embedding.
 
 Counterpart of ``pps_tpu/models/heads.py``.  Every combination is an index
 of a stacked ``[R, ...]`` axis and the per-combo 1x1 convs and FCs are one
@@ -7,8 +8,11 @@ batched product each (``torch.bmm`` in float32).  Combination order is the
 reference's bitmask enumeration, so the 3968-d embedding layout is the
 same as the JAX package's.
 
-Not in this slice: training-mode BN, dropout, CRM and the GroupNorm head
-(ROADMAP slice 2: training; slice 6: the variants).
+Train mode: the head BN takes batch stats over axis 0 per combo (biased
+variance, as in the body), dropout draws its keep-mask from an explicit
+``torch.Generator`` unless the caller hands one in (the tests inject the
+JAX package's mask).  Not ported: the GroupNorm head (ROADMAP slice 6: the
+variants).
 """
 
 import math
@@ -16,10 +20,12 @@ import math
 import numpy as np
 import torch
 
-from pps_tpu_torch.models.resnet import BN_EPSILON
+from pps_tpu_torch.models.resnet import (BN_EPSILON, batch_stats,
+                                         running_update)
 
-_TRAIN_TODO = ('the training head (batch-stat BN, dropout, CRM) is not '
-               'ported yet (ROADMAP slice 2: training)')
+DROPOUT = 0.2  # reference reid_heads.py:81-90 (REID.DROPOUT_FEATURE)
+_GN_TODO = ('the GroupNorm head is not ported yet (ROADMAP slice 6: the '
+            'variants)')
 
 
 # ---------------------------------------------------------------------------
@@ -71,7 +77,7 @@ def youtu_combos(strip_num, preprefix='youtu'):
 
 def head_spec(cfg, spatial_scale, fpn_level=None):
     """Static head description from cfg: the JAX ``head_spec`` less the
-    keys only training and the GN head read."""
+    keys only the GN head reads."""
     name = cfg.FAST_RCNN.ROI_BOX_HEAD
     strip_num = cfg.REID.BPM_STRIP_NUM
     scale_h = cfg.REID.SCALE[1]
@@ -100,6 +106,7 @@ def head_spec(cfg, spatial_scale, fpn_level=None):
         'mode': mode,
         'bpm_dim': cfg.REID.BPM_DIM,
         'num_logits': cfg.MODEL.NUM_CLASSES - 1,
+        'dropout': DROPOUT if cfg.REID.DROPOUT_FEATURE else 0.0,
         'use_gn': cfg.MODEL.USE_GN,
     }
 
@@ -164,9 +171,7 @@ def init_head_params(gen, spec, dim_in, device, param_prefix='reid'):
     fan-out), ``{p}_conv_b [R, D]``, ``{p}_bn_s/_b [R, D]``,
     ``{p}_fc_w [R, D, K]`` (gauss 0.001), ``{p}_fc_b [R, K]``."""
     if spec.get('use_gn'):
-        raise NotImplementedError(
-            'the GroupNorm head is not ported yet (ROADMAP slice 6: the '
-            'variants)')
+        raise NotImplementedError(_GN_TODO)
     r, d, k = len(spec['combos']), spec['bpm_dim'], spec['num_logits']
     p = param_prefix
     conv_w = torch.randn((r, dim_in, d), generator=gen) * math.sqrt(2.0 / d)
@@ -187,8 +192,8 @@ def init_head_params(gen, spec, dim_in, device, param_prefix='reid'):
 
 
 def init_crm_params(gen, spec, device, param_prefix='crm'):
-    """crm_fc8c / crm_fc8d: [D, K] Xavier-uniform + zero bias.  Carried so
-    a checkpoint round trip keeps them; CRM itself runs only in training."""
+    """crm_fc8c / crm_fc8d: [D, K] Xavier-uniform + zero bias (CRM runs
+    only in training; ``apply_crm``)."""
     d, k = spec['bpm_dim'], spec['num_logits']
     lim = math.sqrt(3.0 / d)
     out = {}
@@ -201,25 +206,50 @@ def init_crm_params(gen, spec, device, param_prefix='crm'):
 
 
 def apply_head(params, state, combo_feats, spec, train=False,
-               param_prefix='reid'):
-    """Eval-mode stacked embedding head.
+               param_prefix='reid', dropout_mask=None, generator=None):
+    """Stacked embedding head.
 
     Args:
       combo_feats: [B, R, C] float32 combination features.
+      train: batch-stat BN with running-stat updates, then dropout (rate
+        ``spec['dropout']``) before the classifier.
+      dropout_mask: optional [B, R, D] bool keep-mask; else it is drawn
+        from ``generator`` (keep with probability 1 - rate).
     Returns:
-      (features [B, R, D] post-ReLU, logits [B, R, K])
+      eval: (features [B, R, D] post-ReLU, logits [B, R, K]);
+      train: (features, logits, updates) with the new ``{p}_bn_rm/_riv``.
+      The features are pre-dropout in both.
     """
-    if train or spec.get('use_gn'):
-        raise NotImplementedError(_TRAIN_TODO)
+    if spec.get('use_gn'):
+        raise NotImplementedError(_GN_TODO)
     p = param_prefix
     x = torch.bmm(combo_feats.transpose(0, 1), params[p + '_conv_w'])
     x = x.transpose(0, 1) + params[p + '_conv_b'][None]
-    mean, var = state[p + '_bn_rm'], state[p + '_bn_riv']
+    if train:
+        # SpatialBN on [B, D, 1, 1] per combo: batch stats over axis 0
+        mean, var = batch_stats(x, (0,))
+        updates = {p + '_bn_rm': running_update(state[p + '_bn_rm'], mean),
+                   p + '_bn_riv': running_update(state[p + '_bn_riv'], var)}
+    else:
+        mean, var = state[p + '_bn_rm'], state[p + '_bn_riv']
     x = (x - mean) * (torch.rsqrt(var + BN_EPSILON) * params[p + '_bn_s']) \
         + params[p + '_bn_b']
     features = torch.relu(x)
-    logits = torch.bmm(features.transpose(0, 1), params[p + '_fc_w'])
+    fc_in = features
+    if train and spec['dropout'] > 0.0:
+        keep = 1.0 - spec['dropout']
+        if dropout_mask is None:
+            if generator is None:
+                raise ValueError(
+                    'dropout needs a generator or a mask in train mode')
+            # the draw jax.random.bernoulli makes: uniform < keep
+            dropout_mask = torch.rand(features.shape, generator=generator,
+                                      device=features.device) < keep
+        fc_in = torch.where(dropout_mask, features / keep, 0.0)
+    logits = torch.bmm(fc_in.transpose(0, 1), params[p + '_fc_w'])
     logits = logits.transpose(0, 1) + params[p + '_fc_b'][None]
+    if train:
+        return features, logits, updates
     return features, logits
 
 
@@ -231,3 +261,25 @@ def test_embedding(features, normalize=True):
         norm = torch.sqrt(torch.sum(emb * emb, dim=1, keepdim=True))
         emb = emb / torch.clamp(norm, min=1e-12)
     return emb
+
+
+# ---------------------------------------------------------------------------
+# CRM: combination ranking module
+# ---------------------------------------------------------------------------
+
+
+def apply_crm(params, features, param_prefix='crm'):
+    """Two-branch soft attention over combinations.
+
+    features: [B, R, D] pre-dropout post-ReLU combo features.
+    Returns probs [B, K]: softmax over classes (axis 2) times softmax over
+    combos (axis 1), summed over combos.
+    """
+    p = param_prefix
+    fc8c = torch.matmul(features, params[p + '_fc8c_w']) + \
+        params[p + '_fc8c_b']
+    fc8d = torch.matmul(features, params[p + '_fc8d_w']) + \
+        params[p + '_fc8d_b']
+    alpha_cls = torch.softmax(fc8c, dim=2)
+    alpha_det = torch.softmax(fc8d, dim=1)
+    return torch.sum(alpha_cls * alpha_det, dim=1)

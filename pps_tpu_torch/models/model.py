@@ -1,4 +1,5 @@
-"""Model builder: ResNet body + part head, eval-mode extraction.
+"""Model builder: ResNet body + part head + losses; extraction and the
+training forward pass.
 
 Counterpart of ``pps_tpu/models/model.py``.  As there, the model is a
 static description plus functions over flat ``params`` / ``state`` dicts
@@ -6,14 +7,15 @@ keyed by the reference blob names, so the checkpoint mapping stays a name
 map (``engine/checkpoint.py``).  The public layouts are the JAX package's:
 images NHWC ``[B, H, W, 3]``, embeddings ``[B, R*D]``.
 
-Not in this slice: ``train_forward`` (ROADMAP slice 2: training) and the
-FPN body (slice 6: the variants).
+Not ported: the FPN body (ROADMAP slice 6: the variants) and
+``TPU.REMAT`` (slice 3).
 """
 
 import torch
 
 from pps_tpu_torch.device import resolve_device
 from pps_tpu_torch.models import heads as head_lib
+from pps_tpu_torch.models import losses as loss_lib
 from pps_tpu_torch.models import resnet as resnet_lib
 
 
@@ -25,13 +27,15 @@ def _depth_from_name(name):
 
 
 class ReIDModel:
-    """Static model description + eval-mode apply functions.
+    """Static model description + apply functions.
 
     Attributes:
       device: where ``init`` and ``params_from_numpy`` place tensors.
       resnet_spec / head_spec: static dicts derived from cfg.
       init(generator) -> (params, state)
       extract_features(params, state, images) -> [B, R*D] embeddings
+      train_forward(params, state, batch, generator, loss_scale_factor)
+          -> (total_loss, (state_updates, logs))
     """
 
     def __init__(self, cfg, device=None):
@@ -52,8 +56,12 @@ class ReIDModel:
         self.head_param_prefix = self.head_spec['kind']
         self.num_combos = len(self.head_spec['combos'])
         self.embedding_dim = self.num_combos * self.head_spec['bpm_dim']
+        self.use_triplet = cfg.REID.TRIPLET_LOSS
         self.use_crm = cfg.REID.CRM
         self.normalize_feature = cfg.REID.NORMALIZE_FEATURE
+        # stop-gradient on the body output; the optimizer-side freeze is
+        # solver/optimizer.trainable_from_cfg
+        self.freeze_conv_body = bool(cfg.TRAIN.FREEZE_CONV_BODY)
 
     # -- init ---------------------------------------------------------------
     def init(self, generator):
@@ -76,15 +84,35 @@ class ReIDModel:
         return head_lib.combine_strips(ave, mx, self.masks,
                                        self.head_spec['mode'])
 
-    def _features(self, params, state, images):
-        """Returns (features [B, R, D], logits [B, R, K])."""
+    def _features(self, params, state, images, train=False,
+                  dropout_mask=None, generator=None):
+        """Returns (features [B, R, D], logits [B, R, K], updates); the
+        updates are {} in eval mode."""
         # NHWC -> NCHW view; on the card its memory is channels_last
         x = images.float().permute(0, 3, 1, 2)
-        feat = resnet_lib.apply_resnet(params, state, x, self.resnet_spec)
+        if not train:
+            feat = resnet_lib.apply_resnet(params, state, x,
+                                           self.resnet_spec)
+            combo_feats = self._combo_feats(feat, self.head_spec['splits'])
+            features, logits = head_lib.apply_head(
+                params, state, combo_feats, self.head_spec,
+                param_prefix=self.head_param_prefix)
+            return features, logits, {}
+        if self.cfg.TPU.REMAT:
+            raise NotImplementedError(
+                'TPU.REMAT (activation recomputation) is not ported yet '
+                '(ROADMAP slice 3: the train loop)')
+        feat, updates = resnet_lib.apply_resnet(params, state, x,
+                                                self.resnet_spec, train=True)
+        if self.freeze_conv_body:
+            feat = feat.detach()
         combo_feats = self._combo_feats(feat, self.head_spec['splits'])
-        return head_lib.apply_head(params, state, combo_feats,
-                                   self.head_spec,
-                                   param_prefix=self.head_param_prefix)
+        features, logits, upd = head_lib.apply_head(
+            params, state, combo_feats, self.head_spec, train=True,
+            param_prefix=self.head_param_prefix, dropout_mask=dropout_mask,
+            generator=generator)
+        updates.update(upd)
+        return features, logits, updates
 
     # -- test path ----------------------------------------------------------
     @torch.no_grad()
@@ -95,8 +123,55 @@ class ReIDModel:
         tensor on ``self.device``.  Returns [B, R*D] float32 embeddings,
         L2-normalised when REID.NORMALIZE_FEATURE.
         """
-        features, _ = self._features(params, state, images)
+        features, _, _ = self._features(params, state, images)
         return head_lib.test_embedding(features, self.normalize_feature)
+
+    # -- train path ---------------------------------------------------------
+    def train_forward(self, params, state, batch, generator,
+                      loss_scale_factor, dropout_mask=None):
+        """Returns (total_loss, (state_updates, logs)).
+
+        batch: {'data': [B, H, W, 3], 'labels_int32': [B],
+        'labels_oh': [B, K]} on ``self.device``.  ``generator`` draws the
+        dropout mask unless ``dropout_mask`` [B, R, D] (bool) is given.
+        loss_scale_factor: scalar (tensor or float) multiplying the triplet
+        term under REID.TRIPLET_LOSS_CROSS.  The log keys are the JAX
+        package's; each value is a 0-d tensor.
+        """
+        features, logits, updates = self._features(
+            params, state, batch['data'], train=True,
+            dropout_mask=dropout_mask, generator=generator)
+        labels = batch['labels_int32']
+        ce, acc = loss_lib.softmax_ce_losses(logits, labels)
+        total = torch.sum(ce)
+        logs = {'accuracy_cls': torch.mean(acc)}
+        # per-combo logs in reference blob naming ({prefix}_loss/_accuracy)
+        combos = self.head_spec['combos']
+        for r, (prefix, _) in enumerate(combos):
+            logs[prefix + '_loss'] = ce[r]
+            logs[prefix + '_accuracy'] = acc[r]
+
+        if self.use_crm:
+            probs = head_lib.apply_crm(params, features)
+            crm, crm_acc = loss_lib.crm_loss(probs, batch['labels_oh'],
+                                             labels)
+            total = total + crm
+            logs['crm_loss'] = crm
+            logs['crm_accuracy'] = crm_acc
+
+        if self.use_triplet:
+            mrc, ap_mean, an_mean = loss_lib.triplet_losses(
+                features, labels, normalize=self.normalize_feature)
+            tri = (mrc * loss_scale_factor if self.cfg.REID.TRIPLET_LOSS_CROSS
+                   else mrc)
+            total = total + loss_lib.TRIPLET_WEIGHT * torch.sum(tri)
+            for r, (prefix, _) in enumerate(combos):
+                logs[prefix + '_triplet_loss'] = tri[r]
+                logs[prefix + '_dist_ap_mean'] = ap_mean[r]
+                logs[prefix + '_dist_an_mean'] = an_mean[r]
+
+        logs['loss'] = total
+        return total, (updates, logs)
 
 
 def build_model(cfg, device=None):

@@ -1,4 +1,4 @@
-"""ResNet-50/101/152 conv body in PyTorch (eval mode).
+"""ResNet-50/101/152 conv body in PyTorch (eval and train mode).
 
 Counterpart of ``pps_tpu/models/resnet.py``.  Params live in a flat
 ``{name: tensor}`` dict under the reference's blob names (``conv1_w``,
@@ -17,11 +17,16 @@ Numerics follow the JAX body exactly (``resnet.py:183-259``):
 * with a bfloat16 body each conv casts input and weight to bfloat16, BN
   computes ``(x.f32 - rm) * (rsqrt(riv + 1e-5) * s) + b`` in float32 and
   casts back, ReLU and the residual add run in bfloat16;
-* max-pool pads with -inf.
+* max-pool pads with -inf;
+* train-mode BN takes the batch stats by hand in float32, the *biased*
+  variance ``max(E[x^2] - mean^2, 0)``, and returns running-stat updates
+  ``0.9 * old + 0.1 * new`` (Caffe2 momentum 0.9).  ``F.batch_norm`` with
+  ``training=True`` updates with the unbiased variance, so it is not used;
+* ``TRAIN.FREEZE_AT`` detaches the map at the stage boundary.
 
-Not in this slice: training-mode BN, GroupNorm / AffineChannel bodies,
-BN-folded (``_fb``) and int8 (``_wq``) bodies.  They raise
-NotImplementedError naming the ROADMAP item that ports them.
+Not ported: GroupNorm / AffineChannel bodies, BN-folded (``_fb``) and
+int8 (``_wq``) bodies.  They raise NotImplementedError naming the ROADMAP
+slice that ports them.
 """
 
 import math
@@ -30,8 +35,8 @@ import torch
 import torch.nn.functional as F
 
 BN_EPSILON = 1e-5  # Caffe2 SpatialBN default epsilon
+BN_MOMENTUM = 0.9  # Caffe2 SpatialBN default momentum
 
-_TRAIN_TODO = 'training-mode BN is not ported yet (ROADMAP slice 2: training)'
 _VARIANT_TODO = ('{} bodies are not ported yet (ROADMAP slice 6: the '
                  'variants)')
 
@@ -46,7 +51,7 @@ DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
 
 def resnet_spec(cfg, depth=50):
     """Static description of the conv body derived from cfg: the JAX
-    ``resnet_spec`` less the keys only training and the GN body read."""
+    ``resnet_spec`` less the keys only the GN body reads."""
     n1, n2, n3, n4 = BLOCK_COUNTS[depth]
     res5_stride = cfg.RESNETS.RES5_STRIDE
     res5_dilation = cfg.RESNETS.RES5_DILATION
@@ -64,6 +69,7 @@ def resnet_spec(cfg, depth=50):
         ],
         'spatial_scale': 1.0 / (4 * 1 * 2 * 2 * res5_stride) * res5_dilation,
         'dim_out': 2048,
+        'freeze_at': cfg.TRAIN.FREEZE_AT,
         'dtype': cfg.MODEL.DTYPE,
         'use_gn': bool(cfg.MODEL.USE_GN),
         'use_affine': not bool(cfg.MODEL.USE_BN),
@@ -159,35 +165,72 @@ def batch_norm(x, s, b, rm, riv):
     return y.to(x.dtype)
 
 
+def batch_stats(xf, dims):
+    """Float32 batch mean and biased variance ``max(E[x^2] - mean^2, 0)``
+    over ``dims`` (the JAX package's formula, autograd through both)."""
+    mean = torch.mean(xf, dim=dims)
+    var = torch.clamp(torch.mean(xf * xf, dim=dims) - mean * mean, min=0.0)
+    return mean, var
+
+
+def running_update(old, new):
+    """Caffe2 running-stat update at momentum 0.9 (no gradient)."""
+    return BN_MOMENTUM * old + (1.0 - BN_MOMENTUM) * new.detach()
+
+
+def batch_norm_train(x, s, b, rm, riv):
+    """Train-mode SpatialBN on an NCHW map: batch stats over (N, H, W) in
+    float32, the eval op order on them, cast back to the input dtype.
+    Returns (y, (new_rm, new_riv))."""
+    xf = x.float()
+    mean, var = batch_stats(xf, (0, 2, 3))
+    inv = (torch.rsqrt(var + BN_EPSILON) * s)[None, :, None, None]
+    y = (xf - mean[None, :, None, None]) * inv + b[None, :, None, None]
+    return y.to(x.dtype), (running_update(rm, mean),
+                           running_update(riv, var))
+
+
+def _bn(x, params, state, name, updates):
+    """SpatialBN ``name`` (eval when ``updates`` is None, else train mode
+    with the new running stats written into ``updates``)."""
+    args = (x, params[name + '_s'], params[name + '_b'], state[name + '_rm'],
+            state[name + '_riv'])
+    if updates is None:
+        return batch_norm(*args)
+    y, (updates[name + '_rm'], updates[name + '_riv']) = \
+        batch_norm_train(*args)
+    return y
+
+
 def _conv_bn(x, params, state, name, stride=1, dilation=1, dtype=None,
-             groups=1):
+             groups=1, updates=None):
     if (name + '_wq') in params:
         raise NotImplementedError(_VARIANT_TODO.format('int8 (_wq)'))
     if (name + '_fb') in params:
         raise NotImplementedError(_VARIANT_TODO.format('BN-folded (_fb)'))
     y = conv2d(x, params[name + '_w'], stride=stride, dilation=dilation,
                dtype=dtype, groups=groups)
-    return batch_norm(y, params[name + '_bn_s'], params[name + '_bn_b'],
-                      state[name + '_bn_rm'], state[name + '_bn_riv'])
+    return _bn(y, params, state, name + '_bn', updates)
 
 
 def bottleneck_block(x, params, state, prefix, stride, dilation, stride_1x1,
-                     dtype=None, groups=1):
+                     dtype=None, groups=1, updates=None):
     """1x1 -> 3x3 -> 1x1 bottleneck; ``stride_1x1`` puts the stride on the
-    first 1x1 conv, else on the 3x3."""
+    first 1x1 conv, else on the 3x3.  ``updates``: see ``_bn``."""
     str1, str3 = (stride, 1) if stride_1x1 else (1, stride)
     shortcut = x
     if (prefix + '_branch1_w') in params:
         shortcut = _conv_bn(x, params, state, prefix + '_branch1',
-                            stride=stride, dtype=dtype)
+                            stride=stride, dtype=dtype, updates=updates)
     cur = _conv_bn(x, params, state, prefix + '_branch2a', stride=str1,
-                   dtype=dtype)
+                   dtype=dtype, updates=updates)
     cur = F.relu(cur)
     cur = _conv_bn(cur, params, state, prefix + '_branch2b', stride=str3,
-                   dilation=dilation, dtype=dtype, groups=groups)
+                   dilation=dilation, dtype=dtype, groups=groups,
+                   updates=updates)
     cur = F.relu(cur)
     cur = _conv_bn(cur, params, state, prefix + '_branch2c', stride=1,
-                   dtype=dtype)
+                   dtype=dtype, updates=updates)
     return F.relu(cur + shortcut)
 
 
@@ -204,33 +247,40 @@ def apply_resnet(params, state, x, spec, train=False, return_stages=False):
       params / state: flat dicts (see module docstring).
       x: [N, 3, H, W] float mean-subtracted BGR batch (NCHW; any memory
         format).
+      train: batch-stat BN, running-stat updates and the FREEZE_AT
+        detaches.
       return_stages: also return {res2..res5} intermediate maps.
 
     Returns:
-      the res5 NCHW map, or (res5, stages) with return_stages.  Eval mode
-      has no state updates, so none are returned.
+      eval: the res5 NCHW map, or (res5, stages) with return_stages.
+      train: (res5, updates), or (res5, stages, updates), where updates
+        maps each ``*_bn_rm`` / ``*_bn_riv`` to its new value.
     """
-    if train:
-        raise NotImplementedError(_TRAIN_TODO)
     check_spec(spec)
     if 'conv1_wq' in params or 'conv1_fb' in params:
         raise NotImplementedError(_VARIANT_TODO.format('int8 / BN-folded'))
     dtype = DTYPES[spec.get('dtype', 'float32')]
+    updates = {} if train else None
+    freeze_at = spec.get('freeze_at', 0) if train else 0
     cur = conv2d(x, params['conv1_w'], stride=2, dtype=dtype)
-    cur = batch_norm(cur, params['res_conv1_bn_s'], params['res_conv1_bn_b'],
-                     state['res_conv1_bn_rm'], state['res_conv1_bn_riv'])
+    cur = _bn(cur, params, state, 'res_conv1_bn', updates)
     cur = F.relu(cur)
     cur = max_pool_3x3_s2(cur)
+    if freeze_at == 1:
+        cur = cur.detach()
     stages = {}
-    for (stage, n_blocks, _dim_out, _dim_inner, stride,
-         dilation) in spec['stages']:
+    for si, (stage, n_blocks, _dim_out, _dim_inner, stride,
+             dilation) in enumerate(spec['stages']):
         for i in range(n_blocks):
             cur = bottleneck_block(
                 cur, params, state, '{}_{}'.format(stage, i),
                 stride=stride if i == 0 else 1, dilation=dilation,
                 stride_1x1=spec['stride_1x1'], dtype=dtype,
-                groups=spec['num_groups'])
+                groups=spec['num_groups'], updates=updates)
+        # the reference freezes by a stop-gradient at the stage boundary
+        if freeze_at == si + 2:
+            cur = cur.detach()
         stages[stage] = cur
-    if return_stages:
-        return cur, stages
-    return cur
+    if train:
+        return (cur, stages, updates) if return_stages else (cur, updates)
+    return (cur, stages) if return_stages else cur

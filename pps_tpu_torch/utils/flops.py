@@ -1,0 +1,57 @@
+"""Analytic forward-FLOP accounting (counterpart of
+``pps_tpu/utils/flops.py``).
+
+Counts conv/FC multiply-adds x2 from the static cfg-derived specs; BN,
+pooling and elementwise work are left out (they are not matrix-unit
+work).  ``chip_smoke.py`` divides these counts by measured times for
+TFLOP/s and MFU.
+"""
+
+from pps_tpu_torch.models import heads as head_lib
+from pps_tpu_torch.models import resnet as resnet_lib
+from pps_tpu_torch.models.model import _depth_from_name
+
+
+def _conv_flops(h, w, kh, kw, c_in, c_out, stride=1, groups=1):
+    ho, wo = -(-h // stride), -(-w // stride)
+    return 2 * ho * wo * kh * kw * (c_in // groups) * c_out, ho, wo
+
+
+def resnet_fwd_flops(spec, h, w):
+    """Forward FLOPs per image of the conv body, and its output size."""
+    total, h, w = _conv_flops(h, w, 7, 7, 3, 64, stride=2)
+    h, w = -(-h // 2), -(-w // 2)  # 3x3/2 max pool
+    dim_in = 64
+    groups = spec['num_groups']
+    for (_stage, n_blocks, dim_out, dim_inner, stride, _dil) in spec['stages']:
+        for i in range(n_blocks):
+            s = stride if i == 0 else 1
+            s1, s3 = (s, 1) if spec['stride_1x1'] else (1, s)
+            if i == 0 and dim_in != dim_out:
+                f, _, _ = _conv_flops(h, w, 1, 1, dim_in, dim_out, stride=s)
+                total += f
+            f, h1, w1 = _conv_flops(h, w, 1, 1, dim_in, dim_inner, stride=s1)
+            total += f
+            f, h1, w1 = _conv_flops(h1, w1, 3, 3, dim_inner, dim_inner,
+                                    stride=s3, groups=groups)
+            total += f
+            f, _, _ = _conv_flops(h1, w1, 1, 1, dim_inner, dim_out)
+            total += f
+            h, w = h1, w1
+            dim_in = dim_out
+    return total, h, w
+
+
+def model_fwd_flops(cfg):
+    """Forward FLOPs per image of the whole model: the body, the stacked
+    per-combo head (dim_in -> D) and the classifiers (D -> NUM_CLASSES)."""
+    if cfg.FPN.FPN_ON:
+        raise NotImplementedError(
+            'FPN bodies are not ported yet (ROADMAP slice 6: the variants)')
+    rspec = resnet_lib.resnet_spec(cfg, _depth_from_name(cfg.MODEL.CONV_BODY))
+    w_in, h_in = cfg.REID.SCALE
+    total, _, _ = resnet_fwd_flops(rspec, h_in, w_in)
+    hspec = head_lib.head_spec(cfg, rspec['spatial_scale'])
+    r, d = len(hspec['combos']), hspec['bpm_dim']
+    total += 2 * r * (rspec['dim_out'] * d + d * cfg.MODEL.NUM_CLASSES)
+    return total

@@ -1,6 +1,8 @@
 """Checkpoints cross between pps_tpu and the port bit for bit, in both
 directions, preserved blobs included."""
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,15 @@ def _fresh_port_cfg():
     tcfg.reset_cfg()
     yield
     tcfg.reset_cfg()
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """Each test's checkpoints (~90 MB each, ~250 MB with momentum) are
+    freed when it ends: pytest keeps every test's directory until the
+    session ends, and the suite's later tests need that disk."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(scope='module')
@@ -77,7 +88,7 @@ def test_jax_save_port_load_bitwise(models, tmp_path):
     path = str(tmp_path / 'jax.pkl')
     jck.save_checkpoint(path, jm, jp, js)
     p0, s0 = tm.init(torch.Generator().manual_seed(1))
-    tp, ts = tck.load_checkpoint(path, tm, p0, s0)
+    tp, ts, _ = tck.load_checkpoint(path, tm, p0, s0)
     want_p, want_s = tck.params_from_numpy(tm, jp, js)
     _assert_trees_equal(tp, want_p)
     _assert_trees_equal(ts, want_s)
@@ -111,7 +122,7 @@ def test_preserved_blobs_survive_round_trip(models, tmp_path):
     jsave_object(payload, src)
 
     p0, s0 = tm.init(torch.Generator().manual_seed(1))
-    tp, ts = tck.load_checkpoint(src, tm, p0, s0)
+    tp, ts, _ = tck.load_checkpoint(src, tm, p0, s0)
     assert list(tm._preserved_blobs) == ['aux_unused_w']
     mid = str(tmp_path / 'mid.pkl')
     tck.save_checkpoint(mid, tm, tp, ts)
@@ -137,7 +148,7 @@ def test_partial_load_keeps_other_values(models, tmp_path):
     path = str(tmp_path / 'body.pkl')
     jsave_object({'blobs': body}, path)
     p0, s0 = tm.init(torch.Generator().manual_seed(1))
-    tp, ts = tck.load_checkpoint(path, tm, p0, s0)
+    tp, ts, _ = tck.load_checkpoint(path, tm, p0, s0)
     np.testing.assert_array_equal(tp['conv1_w'].numpy(), body['conv1_w'])
     assert torch.equal(tp['pps_conv_w'], p0['pps_conv_w'])
 
@@ -148,3 +159,55 @@ def test_shape_mismatch_raises(models):
     with pytest.raises(ValueError, match='Shape mismatch'):
         tck.blobs_to_params(tm, {'conv1_w': np.zeros((2, 2), np.float32)},
                             p0, s0)
+
+
+def _jax_momentum(jp, seed=6):
+    rng = np.random.RandomState(seed)
+    return {k: rng.randn(*np.shape(v)).astype(np.float32)
+            for k, v in jp.items()}
+
+
+def test_momentum_port_save_jax_load_bitwise(models, tmp_path):
+    jm, jp, js, tm = models
+    jopt = {'momentum': _jax_momentum(jp)}
+    tp, ts, topt = tck.params_from_numpy(tm, jp, js, jopt)
+    path = str(tmp_path / 'port_mom.pkl')
+    tck.save_checkpoint(path, tm, tp, ts, opt_state=topt)
+    blobs = load_object(path)['blobs']
+    assert 'pps01234_conv_w_momentum' in blobs
+    assert 'conv1_w_momentum' in blobs and 'crm_fc8c_w_momentum' in blobs
+    zeros = {'momentum': _zeros_like(jp)}
+    lp, ls, lopt = jck.load_checkpoint(path, jm, _zeros_like(jp),
+                                       _zeros_like(js), opt_state=zeros)
+    _assert_trees_equal(lp, jp)
+    _assert_trees_equal(ls, js)
+    _assert_trees_equal(lopt['momentum'], jopt['momentum'])
+
+
+def test_momentum_jax_save_port_load_bitwise(models, tmp_path):
+    jm, jp, js, tm = models
+    jopt = {'momentum': _jax_momentum(jp, seed=7)}
+    path = str(tmp_path / 'jax_mom.pkl')
+    jck.save_checkpoint(path, jm, jp, js, opt_state=jopt)
+    p0, s0 = tm.init(torch.Generator().manual_seed(1))
+    o0 = {'momentum': {k: torch.zeros_like(v) for k, v in p0.items()}}
+    tp, ts, topt = tck.load_checkpoint(path, tm, p0, s0, opt_state=o0)
+    want_p, want_s, want_o = tck.params_from_numpy(tm, jp, js, jopt)
+    _assert_trees_equal(tp, want_p)
+    _assert_trees_equal(ts, want_s)
+    _assert_trees_equal(topt['momentum'], want_o['momentum'])
+    # without an opt_state the momentum blobs are skipped, never preserved
+    _, _, none = tck.load_checkpoint(path, tm, p0, s0)
+    assert none is None and tm._preserved_blobs == {}
+
+
+def test_params_from_numpy_carries_the_iter_opt_state(models):
+    jm, jp, js, tm = models
+    jopt = {'momentum': _jax_momentum(jp), 'acmgrad': _jax_momentum(jp, 8),
+            'count': np.int32(5)}
+    _, _, topt = tck.params_from_numpy(tm, jp, js, jopt)
+    assert topt['count'].dtype == torch.int32 and int(topt['count']) == 5
+    assert topt['acmgrad']['conv1_w'].shape == (64, 3, 7, 7)  # OIHW
+    np.testing.assert_array_equal(
+        topt['momentum']['res2_0_branch2b_w'].numpy(),
+        jopt['momentum']['res2_0_branch2b_w'].transpose(3, 2, 0, 1))

@@ -134,6 +134,9 @@ def test_embedding_norm_clamp():
 
 
 def test_training_head_not_ported():
+    """The training head is ported (tests/test_torch_port_train_modes.py);
+    its GroupNorm form is not."""
     params, state, feats, spec = _head_inputs()
-    with pytest.raises(NotImplementedError, match='training'):
-        th.apply_head({}, {}, torch.tensor(feats), spec, train=True)
+    with pytest.raises(NotImplementedError, match='GroupNorm'):
+        th.apply_head({}, {}, torch.tensor(feats), dict(spec, use_gn=True),
+                      train=True)

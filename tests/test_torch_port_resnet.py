@@ -151,5 +151,6 @@ def test_unported_variants_raise():
         tres.check_spec(dict(spec, use_gn=True))
     with pytest.raises(NotImplementedError, match='AffineChannel'):
         tres.check_spec(dict(spec, use_affine=True))
-    with pytest.raises(NotImplementedError, match='training'):
-        tres.apply_resnet({}, {}, torch.zeros(1, 3, 8, 8), spec, train=True)
+    with pytest.raises(NotImplementedError, match='int8'):
+        tres.apply_resnet({'conv1_wq': None}, {}, torch.zeros(1, 3, 8, 8),
+                          spec, train=True)
