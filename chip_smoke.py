@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and train step once on one CUDA
-card.
+"""Drive the PyTorch port's serving path, train step and train -> test
+drivers once on one CUDA card.
 
     python3 chip_smoke.py        # from the repo root, on a GPU host
 
@@ -33,20 +33,44 @@ is non-zero:
 8. train_agree - one step at full width and depth, P 4 x K 2, the same
               draws on both sides: card f32 vs CPU f32, card bf16 vs f32.
 9. profile_train - torch.profiler over 2 train steps (table to stderr).
+10. train_net - ``engine.train.train_model`` on the flagship yaml
+              (configs/market1501/pps_crm_triplet_R-50_1x.yaml) over a
+              synthetic Market-shaped dataset (751 identities x 4 decodes,
+              flipped: 6,008 entries, 93 steps per epoch at P 8 x K 8), cut
+              to 3 epochs with epoch 1 a triplet epoch and the LR halving
+              at epoch 2: loss finite and falling, the JAX package's
+              checkpoint names, a momentum-correction line; ms/step and
+              the loader's queue depth.
+11. resume  - the same run into a fresh directory, preempted mid-epoch 1,
+              then auto-resumed: the first resumed step trains on the
+              continuous run's batch with its loss (within 1e-4).
+12. test_net - ``engine.test.run_inference`` with train_net's
+              model_final.pkl on a Market-sized test split (3,368 queries,
+              19,732 gallery): features through the pkl equal those of the
+              in-memory final state (extracted from a decoded stack, the
+              decode and the model timed apart), the card's CMC/mAP equal
+              the numpy metrics on the same distance matrix, features.pkl
+              loads.
 
-Then a {"kernels": [...]} line (launches counted while the main path,
-phases 3, 5 and 7, ran), the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
-and prints no result.
+The driver phases' own output (json_stats and Single Query lines, logs)
+goes to build/chip_smoke_logs/<phase>.log.  Then a {"kernels": [...]}
+line (launches counted while the main path, phases 3, 5, 7 and 10-12,
+ran), the nvidia-smi line, and last {"ok": true, "device": {...}}.
+Without a CUDA device it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
+import logging
 import os
+import shutil
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 GALLERY = 19732           # Market-1501 test gallery size
 RAW_HW = (128, 64)        # Market-1501 decode geometry (H, W)
@@ -59,6 +83,15 @@ BF16_PEAK_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak (MFU)
 TRAIN_P, TRAIN_K = 8, 8    # the flagship's P x K batch
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 MARKET_TRAIN_IMAGES = 12936  # Market-1501 train split: the epoch size
+FLAGSHIP_YAML = os.path.join(ROOT, 'configs', 'market1501',
+                             'pps_crm_triplet_R-50_1x.yaml')
+TRAIN_IDS, TRAIN_PER_ID = 751, 4    # Market's train identities, cut to 4
+#   decodes each (3,004 images of Market's 12,936)
+TEST_IDS, QUERIES = 750, 3368       # Market-1501's test split
+DRIVER_EPOCHS = 3                   # of the yaml's 121
+PREEMPT_AFTER = 93 + 40             # steps: 40 steps into epoch 1
+NOISE_BANK = 97                     # per-image noise patterns (a prime)
+DISTRACTORS, DISTRACTOR_SEED = 389, 100000  # patterns shared across ids
 
 # tolerances, each with its reason
 F32_RTOL, F32_ATOL = 1e-3, 2e-4   # card f32 vs CPU f32: sums in another
@@ -80,6 +113,13 @@ BF16_LOSS_RTOL = 1e-3             # card bf16 vs f32 train loss: at a
 BF16_MIN_COS = 0.99               # bf16 keeps 8 mantissa bits (~0.4% per
 #   rounding); ~160 roundings through the body add up to about a percent
 #   of the embedding, a cosine of ~0.9999, so 0.99 flags a real fault
+RESUME_LOSS_RTOL = 1e-4           # the first resumed step's loss vs the
+#   continuous run's at that step: the state is loaded bitwise and the
+#   draws are reseeded identically; only a nondeterministic backward of an
+#   earlier step (cuDNN, scatter-add) could move it
+FEAT_ATOL = 1e-6                  # features through model_final.pkl vs the
+#   in-memory final state: the same weights bit for bit, the same kernels
+MAP_ATOL = 1e-6                   # card mAP (float64 AP sums) vs numpy's
 DIST2_ATOL = 1e-4                 # index vs brute force, on squared
 #   distances: d^2 = |q|^2 + |g|^2 - 2 q.g cancels O(1) terms, and the two
 #   sides sum 3968 float32 products in other orders (other GEMM shapes,
@@ -500,7 +540,7 @@ def phase_train(dev, gallery):
          losses=[float(v) for v in losses], loss_lsf0=loss0,
          lr_last=lr, state_moved=moved_state, momentum_moved=moved_mom,
          checkpoint=ckpt)
-    return step, ts, batch
+    return step, ts, batch, ms
 
 
 def checkpoint_round_trip(model, cfg, ts):
@@ -627,6 +667,399 @@ def phase_profile_train(dev, step, ts, batch):
          idle_share=max(0.0, 1 - device_us / 1e6 / wall), top=rows)
 
 
+# ---------------------------------------------------------------------------
+# the train -> test drivers on a synthetic Market-shaped dataset
+# ---------------------------------------------------------------------------
+
+
+class MarketDecoder(object):
+    """decode_fn(path) -> [128, 64, 3] uint8 from the file name alone
+    (``{id:08d}_{cam:04d}_{image:08d}.jpg``, the names ``parse_im_name``
+    reads): 8x4 colour blocks seeded by the identity, mixed 2:1 with the
+    blocks of one of DISTRACTORS patterns picked by the image number
+    (which images of other identities share, so that retrieval is not
+    trivial), plus one of NOISE_BANK noise patterns.  No files."""
+
+    def __init__(self, seed=0):
+        rng = np.random.RandomState(seed)
+        self._noise = rng.randint(-16, 17, size=(NOISE_BANK,) + RAW_HW
+                                  + (3,)).astype(np.int16)
+        self._blocks = {}
+
+    def _block(self, key):
+        b = self._blocks.get(key)
+        if b is None:
+            b = np.random.RandomState(key).randint(0, 256, (8, 4, 3))
+            self._blocks[key] = b = b.astype(np.int16)
+        return b
+
+    def __call__(self, path):
+        name = os.path.basename(path)
+        pid, iid = int(name[:8]), int(name.split('_')[-1].split('.')[0])
+        mixed = (2 * self._block(pid) + self._block(
+            DISTRACTOR_SEED + iid % DISTRACTORS)) // 3
+        im = mixed.repeat(RAW_HW[0] // 8, 0).repeat(RAW_HW[1] // 4, 1)
+        return np.clip(im + self._noise[iid % NOISE_BANK], 0,
+                       255).astype(np.uint8)
+
+
+def write_market(root):
+    """trainval.json (TRAIN_IDS x TRAIN_PER_ID, 6 cameras) and test.json
+    (QUERIES queries and GALLERY gallery images of TEST_IDS identities,
+    each query's identity in every camera of the gallery) under ``root``,
+    registered as market1501_trainval / market1501_test."""
+    from pps_tpu_torch.data import catalog
+    imdir = os.path.join(root, 'images')
+    os.makedirs(imdir, exist_ok=True)
+
+    def write(split, entries):
+        images, anns, cats = [], [], {}
+        for iid, (pid, cam, mark) in enumerate(entries, start=1):
+            cats[pid] = {'id': pid, 'name': '{:08d}'.format(pid)}
+            images.append({'id': iid, 'width': RAW_HW[1],
+                           'height': RAW_HW[0], 'file_name':
+                           '{:08d}_{:04d}_{:08d}.jpg'.format(pid, cam, iid)})
+            ann = {'id': iid, 'image_id': iid, 'category_id': pid}
+            if mark is not None:
+                ann['mark'] = mark
+            anns.append(ann)
+        path = os.path.join(root, split + '.json')
+        with open(path, 'w') as f:
+            json.dump({'images': images, 'annotations': anns,
+                       'categories': list(cats.values())}, f)
+        catalog.register_dataset('market1501_' + split, imdir, path)
+
+    write('trainval', [(pid, j % 6 + 1, None) for pid in
+                       range(1, TRAIN_IDS + 1) for j in range(TRAIN_PER_ID)])
+    write('test', [(1000 + i % TEST_IDS, (i // TEST_IDS) % 6 + 1, 0)
+                   for i in range(QUERIES)]
+          + [(1000 + j % TEST_IDS, (j // TEST_IDS) % 6 + 1, 1)
+             for j in range(GALLERY)])
+
+
+def driver_cfg(out_dir):
+    """The flagship yaml, cut: 3 epochs, epoch 1 a triplet epoch, the LR
+    halving at epoch 2, a snapshot per epoch, no bootstrap weights."""
+    from pps_tpu_torch.config import (cfg, reset_cfg, merge_cfg_from_file,
+                                      merge_cfg_from_list,
+                                      assert_and_infer_cfg)
+    reset_cfg()
+    merge_cfg_from_file(FLAGSHIP_YAML)
+    merge_cfg_from_list(['TRAIN.WEIGHTS', "''",
+                         'SOLVER.MAX_ITER', str(DRIVER_EPOCHS),
+                         'SOLVER.STEPS', '[0, 2]',
+                         'REID.TRIPLET_LOSS_START', '0',
+                         'TRAIN.SNAPSHOT_ITERS', '1', 'OUTPUT_DIR', out_dir])
+    assert_and_infer_cfg()
+    return cfg
+
+
+class StepRecorder(object):
+    """While active, records what ``train_model`` does at each step: the
+    (epoch, step in epoch), the epoch plans' batch indices, a CUDA event
+    at the step's start, the loss (on the card), the loader's queue depth,
+    and the last train state."""
+
+    def __init__(self):
+        self.plans, self.at, self.events, self.losses = {}, [], [], []
+        self.qsize, self.state = [], None
+
+    def __enter__(self):
+        import torch
+        from pps_tpu_torch.data import loader as loader_lib
+        from pps_tpu_torch.parallel import train_step as ts_lib
+        cls = loader_lib.ReIDLoader
+        self._saved = [(cls, 'plan_epoch', cls.plan_epoch),
+                       (cls, 'iter_epoch', cls.iter_epoch),
+                       (ts_lib, 'make_train_step', ts_lib.make_train_step)]
+        plan_epoch, iter_epoch, make = (v for _, _, v in self._saved)
+
+        def plan(loader, ep):
+            out = plan_epoch(loader, ep)
+            self.plans[ep] = [list(p[3]) for p in out]
+            return out
+
+        def iterate(loader, ep, start_step=0):
+            for item in iter_epoch(loader, ep, start_step):
+                self.at.append((ep, item[0]))
+                self.qsize.append(loader.qsize())
+                yield item
+
+        def make_step(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def recorded(*a, **k):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.events.append(ev)
+                self.state, logs = step(*a, **k)
+                self.losses.append(logs['loss'])
+                return self.state, logs
+            return recorded
+        cls.plan_epoch, cls.iter_epoch = plan, iterate
+        ts_lib.make_train_step = make_step
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in self._saved:
+            setattr(owner, name, value)
+        return False
+
+    def indices(self, k):
+        ep, i = self.at[k]
+        return self.plans[ep][i]
+
+
+@contextlib.contextmanager
+def phase_log(name):
+    """The phase's stdout and the port's log records go to
+    build/chip_smoke_logs/<name>.log; yields the path."""
+    path = os.path.join(ROOT, 'build', 'chip_smoke_logs', name + '.log')
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    log = logging.getLogger('pps_tpu_torch')
+    with open(path, 'w') as f:
+        handler = logging.StreamHandler(f)
+        handler.setFormatter(logging.Formatter(
+            '%(levelname)s %(name)s: %(message)s'))
+        log.addHandler(handler)
+        log.setLevel(logging.INFO)
+        try:
+            with contextlib.redirect_stdout(f):
+                yield path
+        finally:
+            log.removeHandler(handler)
+
+
+def _read(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def phase_train_net(dev, out_root, decode, bare_ms):
+    """train_model on the flagship yaml over the synthetic Market split."""
+    import torch
+    from pps_tpu_torch.engine.train import train_model
+    cfg = driver_cfg(os.path.join(out_root, 'train_net'))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with phase_log('train_net') as log, StepRecorder() as rec:
+        t0 = time.perf_counter()
+        ckpts = train_model(cfg, decode_fn=decode, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    lines = _read(log)
+    out_dir = os.path.dirname(ckpts['final'])
+    names = sorted(os.listdir(out_dir))
+    want = ['model_epoch1.pkl', 'model_epoch3.pkl', 'model_final.pkl']
+    if names != want:
+        raise AssertionError('checkpoints {} != {}'.format(names, want))
+    losses = torch.stack(rec.losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError('non-finite train loss')
+    ipe = len(rec.plans[0])
+    # epochs 0 and 2 both run at loss_scale_factor 0: compare like with
+    # like, the first steps of epoch 0 against the last of epoch 2
+    n = min(10, ipe // 2)
+    first, last = float(losses[:n].mean()), float(losses[-n:].mean())
+    if not last < first:
+        raise AssertionError('loss did not fall: {} -> {}'.format(first,
+                                                                  last))
+    scaled = [ln for ln in lines if 'scaling update history' in ln]
+    if not scaled:
+        raise AssertionError('no momentum-correction line was logged')
+    step_ms = [a.elapsed_time(b) for a, b in zip(rec.events[:-1],
+                                                 rec.events[1:])]
+    ms = float(np.median(step_ms))
+    emit('train_net', config=os.path.relpath(FLAGSHIP_YAML, ROOT),
+         entries=TRAIN_IDS * TRAIN_PER_ID * 2, steps_per_epoch=ipe,
+         epochs=DRIVER_EPOCHS, steps=len(losses), batch=BATCH,
+         ms_per_step=ms, ms_p90=float(np.percentile(step_ms, 90)),
+         wall_s=seconds, wall_ms_per_step=seconds / len(losses) * 1e3,
+         bare_step_ms=bare_ms, vs_bare=ms / bare_ms,
+         imgs_per_s=BATCH / ms * 1e3,
+         mb_qsize_median=float(np.median(rec.qsize)),
+         mb_qsize_min=int(min(rec.qsize)),
+         loss_first=first, loss_last=last, loss_mean_of=n,
+         loss_epoch_ends=[float(losses[ipe - 1]), float(losses[-1])],
+         checkpoints=names, momentum_lines=scaled[:2],
+         json_stats_lines=sum(ln.startswith('json_stats: ') for ln in lines),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, log=log)
+    return cfg, rec, ckpts['final']
+
+
+class _AfterSteps(object):
+    """preempt_event: is_set() turns True at its n-th poll (one a step)."""
+
+    def __init__(self, n):
+        self.calls, self.n = 0, n
+
+    def clear(self):
+        pass
+
+    def is_set(self):
+        self.calls += 1
+        return self.calls >= self.n
+
+
+def phase_resume(dev, out_root, decode, cont, cont_final):
+    """The train_net run again in a fresh directory, preempted mid-epoch
+    1, then auto-resumed to the end."""
+    import torch
+    from pps_tpu_torch.engine.train import Preempted, train_model
+    from pps_tpu_torch.utils.io import load_object
+    cfg = driver_cfg(os.path.join(out_root, 'resume'))
+    with phase_log('resume') as log:
+        t0 = time.perf_counter()
+        try:
+            train_model(cfg, decode_fn=decode, device=dev,
+                        preempt_event=_AfterSteps(PREEMPT_AFTER))
+            raise AssertionError('the run was not preempted')
+        except Preempted as p:
+            point = (p.epoch, p.step, os.path.basename(p.path))
+        with StepRecorder() as rec:
+            ckpts = train_model(cfg, decode_fn=decode, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if point[:2] != cont.at[PREEMPT_AFTER]:
+        raise AssertionError('preempted at {}, expected {}'.format(
+            point, cont.at[PREEMPT_AFTER]))
+    resumed = [ln for ln in _read(log) if 'Auto-resuming' in ln]
+    if not resumed or rec.at[0] != cont.at[PREEMPT_AFTER]:
+        raise AssertionError('did not resume at {}: {}'.format(
+            cont.at[PREEMPT_AFTER], resumed))
+    if rec.indices(0) != cont.indices(PREEMPT_AFTER):
+        raise AssertionError('the resumed step trained on another batch')
+    loss, want = float(rec.losses[0]), float(cont.losses[PREEMPT_AFTER])
+    rel = abs(loss - want) / abs(want)
+    if rel > RESUME_LOSS_RTOL:
+        raise AssertionError('resumed loss {} vs continuous {}'.format(
+            loss, want))
+    if not os.path.exists(ckpts['final']):
+        raise AssertionError('no model_final.pkl after the resume')
+    got = load_object(ckpts['final'])['blobs']
+    ref = load_object(cont_final)['blobs']
+    equal = sum(np.array_equal(got[k], ref[k]) for k in ref)
+    worst = max(float(np.max(np.abs(got[k] - ref[k])) /
+                      max(float(np.max(np.abs(ref[k]))), 1e-30))
+                for k in ref)
+    emit('resume', preempted_at=list(point), resumed_at=list(rec.at[0]),
+         resumed_steps=len(rec.losses), same_batch=True,
+         first_loss=loss, continuous_loss=want, loss_rel=rel,
+         loss_rtol=RESUME_LOSS_RTOL, wall_s=seconds,
+         checkpoints=sorted(os.listdir(os.path.dirname(ckpts['final']))),
+         final_blobs_bitwise_equal=equal, final_blobs=len(ref),
+         final_worst_rel_diff=worst, log=log)
+
+
+def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec):
+    """run_inference with model_final.pkl on the Market-sized test split;
+    the features, the card's metrics and features.pkl held."""
+    import torch
+    import yaml
+    from pps_tpu_torch.engine import test as test_lib
+    from pps_tpu_torch.evaluation import evaluator as ev
+    from pps_tpu_torch.evaluation import metrics
+    from pps_tpu_torch.evaluation.device_eval import cmc_map_device
+    from pps_tpu_torch.models.model import build_model
+    from pps_tpu_torch.ops.distance import euclidean_distmat
+    from pps_tpu_torch.parallel.eval_step import (make_extract_fn,
+                                                  extract_features)
+    from pps_tpu_torch.utils.io import load_object
+    out_dir = os.path.join(out_root, 'test_net')
+    seen = {}
+    extract, evaluate = (test_lib.extract_dataset_features,
+                         test_lib.evaluate_dataset)
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seen[name] = (out, time.perf_counter() - t0)
+            return out
+        return run
+    test_lib.extract_dataset_features = timed('extract', extract)
+    test_lib.evaluate_dataset = timed('eval', evaluate)
+    try:
+        with phase_log('test_net') as log:
+            t0 = time.perf_counter()
+            results = test_lib.run_inference(cfg, weights_file=final_pkl,
+                                             output_dir=out_dir,
+                                             decode_fn=decode, device=dev)
+            seconds = time.perf_counter() - t0
+    finally:
+        test_lib.extract_dataset_features = extract
+        test_lib.evaluate_dataset = evaluate
+    single = [ln for ln in _read(log) if ln.startswith('Single Query:')]
+    print(single[0], flush=True)
+    feats, extract_s = seen['extract']
+    n = QUERIES + GALLERY
+    if feats.shape != (n, 3968) or not np.isfinite(feats).all():
+        raise AssertionError('features {}'.format(feats.shape))
+    # the same features from the in-memory final state of train_net, by
+    # the stacked path timed in its two parts: the decode threads alone,
+    # then the model over the decoded stack (what streaming overlaps)
+    model = build_model(cfg, device=dev)
+    roidb = test_lib.roidb_for_test('market1501_test')
+    t0 = time.perf_counter()
+    stack = test_lib.decode_uint8_stack(roidb, decode_fn=decode)
+    decode_s = time.perf_counter() - t0
+    w, h = cfg.REID.SCALE
+    fn = make_extract_fn(model, device_preproc=(cfg.PIXEL_MEANS, (h, w)),
+                         device=dev)
+    t0 = time.perf_counter()
+    mem = extract_features(fn, train_rec.state['params'],
+                           train_rec.state['state'], stack, BATCH)
+    stacked_s = time.perf_counter() - t0
+    del stack
+    feat_diff = float(np.max(np.abs(mem - feats)))
+    if feat_diff > FEAT_ATOL:
+        raise AssertionError('pkl vs in-memory features: {}'.format(
+            feat_diff))
+    # the card's metrics against numpy on the card's distance matrix
+    marks = np.array([e['mark'] for e in roidb])
+    ids = np.array([ev.parse_im_name(e['im_name'], 'id') for e in roidb])
+    cams = np.array([ev.parse_im_name(e['im_name'], 'cam') for e in roidb])
+    q, g = marks == 0, marks == 1
+    ft = torch.as_tensor(feats, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dm = euclidean_distmat(ft[torch.as_tensor(q, device=dev)],
+                           ft[torch.as_tensor(g, device=dev)])
+    m_card, c_card = cmc_map_device(dm, ids[q], ids[g], cams[q], cams[g])
+    m_card, c_card = float(m_card), c_card.cpu().numpy()
+    card_s = time.perf_counter() - t0
+    host = dm.cpu().numpy()
+    t0 = time.perf_counter()
+    m_np = metrics.mean_ap(host, ids[q], ids[g], cams[q], cams[g])
+    c_np = metrics.cmc(host, ids[q], ids[g], cams[q], cams[g], topk=10,
+                       **ev.CMC_KWARGS)
+    numpy_s = time.perf_counter() - t0
+    if not np.array_equal(c_card, c_np):
+        raise AssertionError('CMC card {} numpy {}'.format(c_card, c_np))
+    if abs(m_card - m_np) > MAP_ATOL:
+        raise AssertionError('mAP card {} numpy {}'.format(m_card, m_np))
+    if abs(results['market1501_test']['single']['mAP'] - m_card) > MAP_ATOL:
+        raise AssertionError('run_inference mAP differs from the card\'s')
+    pkl = load_object(os.path.join(out_dir, 'features.pkl'))
+    plain = yaml.safe_load(pkl['cfg'])
+    if not np.array_equal(pkl['all_feats'], feats) or \
+            plain['MODEL']['NUM_CLASSES'] != cfg.MODEL.NUM_CLASSES:
+        raise AssertionError('features.pkl does not hold the run')
+    emit('test_net', queries=int(q.sum()), gallery=int(g.sum()),
+         single_query=single[0], mAP=m_card, cmc1=float(c_card[0]),
+         extract_s=extract_s, extract_imgs_per_s=n / extract_s,
+         decode_only_imgs_per_s=n / decode_s,
+         stacked_extract_imgs_per_s=n / stacked_s,
+         eval_s=seen['eval'][1], run_inference_s=seconds,
+         pkl_vs_memory_max_abs=feat_diff, feat_atol=FEAT_ATOL,
+         map_card=m_card, map_numpy=m_np, map_diff=abs(m_card - m_np),
+         cmc_equal=True, card_metrics_s=card_s, numpy_metrics_s=numpy_s,
+         features_pkl_mb=os.path.getsize(os.path.join(
+             out_dir, 'features.pkl')) / 1e6, log=log)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -658,13 +1091,31 @@ def main():
 
     # main path, part 3: the train step
     ze.launches = 0
-    step, ts, batch = phase_train(dev, gallery)
+    step, ts, batch, bare_ms = phase_train(dev, gallery)
     launches['zero_even'] += ze.launches
 
     phase_profile_train(dev, step, ts, batch)
     del step, ts, batch
     torch.cuda.empty_cache()
     phase_train_agree(dev, gallery)
+    torch.cuda.empty_cache()
+
+    # main path, part 4: the train -> test drivers
+    out_root = os.path.join(ROOT, 'build', 'chip_smoke_run')
+    shutil.rmtree(out_root, ignore_errors=True)
+    decode = MarketDecoder()
+    write_market(os.path.join(out_root, 'data'))
+    ze.launches = 0
+    cfg, rec, final_pkl = phase_train_net(dev, out_root, decode, bare_ms)
+    launches['zero_even'] += ze.launches
+    ze.launches = 0
+    phase_resume(dev, out_root, decode, rec, final_pkl)
+    launches['zero_even'] += ze.launches
+    ze.launches = 0
+    phase_test_net(dev, out_root, cfg, final_pkl, decode, rec)
+    launches['zero_even'] += ze.launches
+    del rec
+    shutil.rmtree(out_root, ignore_errors=True)  # ~2.5 GB of checkpoints
 
     for k in kernels:
         k['launches'] = launches[k['name']]

@@ -11,8 +11,11 @@ never runs in TF32 (``torch.backends.cuda.matmul.allow_tf32`` and
 with ``MODEL.DTYPE bfloat16`` the conv body casts its input and each weight
 to bfloat16 per conv, runs BN arithmetic in float32 and casts back, and the
 res5 map is cast to float32 before the head (``models/resnet.py``).
+
+Host-to-device copies: ``Transfer`` (see there).
 """
 
+import numpy as np
 import torch
 
 
@@ -31,3 +34,45 @@ def resolve_device(device=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+class Transfer(object):
+    """Host numpy arrays -> tensors on ``device``, copied ahead of use.
+
+    On the card ``put`` stages each array in pinned host memory and starts
+    a ``non_blocking`` copy on a side stream, so the copy overlaps the
+    compute already queued; ``ready`` makes the consumer's stream wait for
+    the side stream and records each tensor on it, so the caching
+    allocator cannot hand the memory back before the consumer is done.
+    On the CPU both are plain conversions."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == 'cuda' else None)
+
+    def put(self, arrays):
+        """A dict of arrays (or one array) -> the same of device tensors,
+        their copies started."""
+        one = not isinstance(arrays, dict)
+        host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in ({0: arrays} if one else arrays).items()}
+        if self._stream is None:
+            out = {k: v.to(self.device) for k, v in host.items()}
+        else:
+            with torch.cuda.stream(self._stream):
+                out = {k: v.pin_memory().to(self.device, non_blocking=True)
+                       for k, v in host.items()}
+        return out[0] if one else out
+
+    def ready(self, tensors):
+        """``tensors`` (a dict or one tensor from ``put``), safe to use on
+        the current stream."""
+        if self._stream is None:
+            return tensors
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_stream(self._stream)
+        for t in (tensors.values() if isinstance(tensors, dict)
+                  else (tensors,)):
+            t.record_stream(cur)
+        return tensors

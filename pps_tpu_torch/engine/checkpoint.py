@@ -19,6 +19,8 @@ multi-host saving are not ported.
 """
 
 import logging
+import os
+import re
 
 import numpy as np
 import torch
@@ -198,10 +200,16 @@ def save_checkpoint(path, model, params, state, opt_state=None, cfg=None):
         logger.info('Re-emitting %d preserved (model-unused) blobs', n_pres)
     payload = {'blobs': blobs}
     if cfg is not None:
-        import yaml
-        payload['cfg'] = yaml.dump(_plain(dict(cfg)))
+        payload['cfg'] = dump_cfg(cfg)
     save_object(payload, path)
     logger.info('Wrote checkpoint: %s (%d blobs)', path, len(blobs))
+
+
+def dump_cfg(cfg):
+    """``cfg`` as the yaml string the pkl containers carry; it parses
+    with ``yaml.safe_load`` (plain dicts, lists and scalars only)."""
+    import yaml
+    return yaml.safe_dump(_plain(dict(cfg)))
 
 
 def _plain(obj):
@@ -242,3 +250,33 @@ def load_checkpoint(path, model, params, state, opt_state=None):
             opt_state = dict(opt_state)
             opt_state['momentum'] = mom
     return params, state, opt_state
+
+
+_EPOCH_RE = re.compile(r'^model_epoch(\d+)\.(pkl|orbax)$')
+_PREEMPT_RE = re.compile(r'^model_preempt_epoch(\d+)_step(\d+)\.(pkl|orbax)$')
+
+
+def find_resume_checkpoint(output_dir):
+    """The auto-resume scan: (path, epoch, step) of the furthest resume
+    point in ``output_dir``, or (None, 0, 0).  ``model_epoch{N}`` resumes
+    at (N, 0); ``model_preempt_epoch{E}_step{S}``, written by the
+    preemption path after S steps of epoch E, at (E, S); the (epoch, step)
+    order is the resume-position order.  ``model_final.pkl`` wins with
+    epoch -1: training is complete.  ``.orbax`` names are matched as the
+    JAX package does, so such a directory is found (and then refused by
+    the loader: orbax is not ported)."""
+    final = os.path.join(output_dir, 'model_final.pkl')
+    if os.path.exists(final):
+        return final, -1, 0
+    best = (None, 0, 0)
+    if os.path.isdir(output_dir):
+        for f in os.listdir(output_dir):
+            m = _EPOCH_RE.match(f)
+            key = (int(m.group(1)), 0) if m else None
+            if key is None:
+                m = _PREEMPT_RE.match(f)
+                if m:
+                    key = (int(m.group(1)), int(m.group(2)))
+            if key is not None and key > best[1:]:
+                best = (os.path.join(output_dir, f),) + key
+    return best

@@ -1,0 +1,252 @@
+"""Inference and evaluation engine on one device (counterpart of
+``pps_tpu/engine/test.py``).
+
+Test images are decoded on the host by a thread pool, shipped as raw uint8
+and preprocessed, embedded and scored on the device.  The tail batch is
+padded to the batch size (its pad rows dropped), and ``features.pkl``
+keeps the reference container ``{'all_feats': [N, E], 'cfg': yaml}``, so
+the JAX package's evaluation tools read it.
+
+Not ported: mixed decode sizes (the padded wire) and the float32 host
+preprocessing fallback (ROADMAP slice 3b), int8 extraction
+(``TPU.INT8_EVAL``, slice 6), orbax weights (slice 8), re-ranking and the
+rank-list visualisation (``REID.RERANK``, ``REID.VIS``, slice 5).  Each
+raises.
+"""
+
+import logging
+import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from pps_tpu_torch.data import transforms
+from pps_tpu_torch.data.json_dataset import roidb_for_test
+from pps_tpu_torch.device import Transfer, resolve_device
+from pps_tpu_torch.engine import checkpoint as ckpt_lib
+from pps_tpu_torch.evaluation import evaluator as eval_lib
+from pps_tpu_torch.models.model import build_model
+from pps_tpu_torch.parallel import eval_step as eval_step_lib
+from pps_tpu_torch.utils.io import save_object
+from pps_tpu_torch.utils.timer import Timer
+
+logger = logging.getLogger(__name__)
+
+_MIXED_TODO = ('{} is not ported yet (ROADMAP slice 3b: mixed-size '
+               'datasets and the host augmentation chain)')
+
+
+def _default_workers(num_workers):
+    """None -> scale with the host (capped at 8); explicit ints honoured."""
+    if num_workers is None:
+        return min(8, os.cpu_count() or 1)
+    return num_workers
+
+
+def _check_uniform(roidb, device_preproc):
+    if not device_preproc:
+        raise NotImplementedError(_MIXED_TODO.format(
+            'The float32 host preprocessing path (TPU.DEVICE_PREPROC False)'))
+    sizes = {(e.get('height'), e.get('width')) for e in roidb}
+    if len(sizes) > 1 and all(None not in s for s in sizes):
+        raise NotImplementedError(_MIXED_TODO.format(
+            'A test set of mixed image sizes'))
+
+
+def _stack_uniform(ims):
+    if any(im.shape != ims[0].shape for im in ims):
+        raise NotImplementedError(_MIXED_TODO.format(
+            'Decodes of mixed sizes ({})'.format(
+                sorted({im.shape for im in ims}))))
+    return np.stack(ims)
+
+
+def decode_uint8_stack(roidb, decode_fn=None, num_workers=None):
+    """Decode the whole set to one uint8 stack [N, h, w, 3]."""
+    decode_fn = decode_fn or transforms.decode_image
+    with ThreadPoolExecutor(max(1, _default_workers(num_workers))) as pool:
+        ims = list(pool.map(lambda e: decode_fn(e['image']), roidb))
+    return _stack_uniform(ims)
+
+
+def stream_extract(cfg, model, params, state, roidb, batch_size,
+                   decode_fn=None, flip_tta=False, device_preproc=True,
+                   num_workers=None, prefetch=3):
+    """Streaming extraction in O(prefetch x batch) host memory: threads
+    decode whole batches ahead (cv2 releases the GIL), each batch goes to
+    the device as uint8 on a side stream while the previous one computes,
+    and the cast, mean subtraction and cv2-exact bicubic resize run on the
+    device (``make_extract_fn(device_preproc=...)``).  Returns [N, E]
+    float32 numpy."""
+    _check_uniform(roidb, device_preproc)
+    decode_fn = decode_fn or transforms.decode_image
+    w, h = cfg.REID.SCALE
+    extract = eval_step_lib.make_extract_fn(
+        model, flip_tta=flip_tta,
+        device_preproc=(np.asarray(cfg.PIXEL_MEANS), (h, w)),
+        device=model.device)
+    transfer = Transfer(model.device)
+
+    def prep(start):
+        entries = roidb[start:start + batch_size]
+        ims = _stack_uniform([decode_fn(e['image']) for e in entries])
+        pad = batch_size - ims.shape[0]
+        if pad:
+            ims = np.concatenate([ims, np.repeat(ims[-1:], pad, axis=0)],
+                                 axis=0)
+        return ims, pad
+
+    starts = list(range(0, len(roidb), batch_size))
+    out, futs = [], deque()
+    pending = None  # (features tensor, pad)
+    with ThreadPoolExecutor(max(1, _default_workers(num_workers))) as pool:
+        issued = 0
+        for _ in range(min(prefetch, len(starts))):
+            futs.append(pool.submit(prep, starts[issued]))
+            issued += 1
+        for _ in starts:
+            ims, pad = futs.popleft().result()
+            if issued < len(starts):
+                futs.append(pool.submit(prep, starts[issued]))
+                issued += 1
+            feats = extract(params, state, transfer.ready(transfer.put(ims)))
+            if pending is not None:
+                pf, ppad = pending
+                out.append(pf.cpu().numpy()[:batch_size - ppad])
+            pending = (feats, pad)
+    if pending is not None:
+        pf, ppad = pending
+        out.append(pf.cpu().numpy()[:batch_size - ppad])
+    return (np.concatenate(out, axis=0) if out
+            else np.zeros((0, model.embedding_dim), np.float32))
+
+
+def default_eval_batch(cfg, n_dev=1, batch_size=None):
+    """The padded extraction batch: TEST.IMS_PER_BATCH per device (64 when
+    unset) times the device count, rounded down to a device multiple."""
+    if batch_size is None:
+        per_dev = cfg.TEST.IMS_PER_BATCH if cfg.TEST.IMS_PER_BATCH > 0 else 64
+        batch_size = per_dev * n_dev
+    return max(n_dev, (batch_size // n_dev) * n_dev)
+
+
+def extract_dataset_features(cfg, model, params, state, roidb,
+                             decode_fn=None, batch_size=None, flip_tta=None,
+                             device_preproc=None, streaming=None):
+    """[N, E] float32 numpy features of ``roidb`` on ``model.device``:
+    streamed (``TPU.STREAMING_EVAL``, the default) or from one decoded
+    stack."""
+    batch_size = default_eval_batch(cfg, 1, batch_size)
+    if flip_tta is None:
+        flip_tta = bool(cfg.TEST.BBOX_AUG.ENABLED and cfg.TEST.BBOX_AUG.H_FLIP)
+    if device_preproc is None:
+        device_preproc = cfg.TPU.DEVICE_PREPROC
+    if streaming is None:
+        streaming = cfg.TPU.STREAMING_EVAL
+    timer = Timer()
+    timer.tic()
+    if streaming:
+        feats = stream_extract(cfg, model, params, state, roidb, batch_size,
+                               decode_fn=decode_fn, flip_tta=flip_tta,
+                               device_preproc=device_preproc)
+        t_total = timer.toc(average=False)
+        logger.info('Extracted %d features (streaming): %.1fs '
+                    '(%.1f imgs/s)', len(roidb), t_total,
+                    len(roidb) / max(t_total, 1e-9))
+        return feats
+    _check_uniform(roidb, device_preproc)
+    images = decode_uint8_stack(roidb, decode_fn=decode_fn)
+    w, h = cfg.REID.SCALE
+    extract = eval_step_lib.make_extract_fn(
+        model, flip_tta=flip_tta,
+        device_preproc=(np.asarray(cfg.PIXEL_MEANS), (h, w)),
+        device=model.device)
+    t_prep = timer.toc(average=False)
+    timer.tic()
+    feats = eval_step_lib.extract_features(extract, params, state, images,
+                                           batch_size)
+    t_extract = timer.toc(average=False)
+    logger.info('Extracted %d features: decode %.1fs, extract %.1fs '
+                '(%.1f imgs/s)', len(roidb), t_prep, t_extract,
+                len(roidb) / max(t_extract, 1e-9))
+    return feats
+
+
+def test_net(cfg, weights_file, dataset_name, output_dir=None,
+             decode_fn=None, device=None):
+    """Extract the features of a test dataset; write features.pkl to
+    ``output_dir``.  Returns (features, roidb)."""
+    if cfg.TPU.INT8_EVAL:
+        raise NotImplementedError(
+            'TPU.INT8_EVAL is not ported yet (ROADMAP slice 6: the variants)')
+    if weights_file and str(weights_file).endswith('.orbax'):
+        raise NotImplementedError(
+            'orbax weights are not ported (ROADMAP slice 8: multi-GPU)')
+    model = build_model(cfg, device=device)
+    params, state = model.init(torch.Generator().manual_seed(cfg.RNG_SEED))
+    if weights_file:
+        params, state, _ = ckpt_lib.load_checkpoint(weights_file, model,
+                                                    params, state)
+    roidb = roidb_for_test(dataset_name)
+    feats = extract_dataset_features(cfg, model, params, state, roidb,
+                                     decode_fn=decode_fn)
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        feat_file = os.path.join(output_dir, 'features.pkl')
+        save_object(dict(all_feats=feats, cfg=ckpt_lib.dump_cfg(cfg)),
+                    feat_file)
+        logger.info('Wrote features to: %s', os.path.abspath(feat_file))
+    return feats, roidb
+
+
+def evaluate_dataset(cfg, feats, roidb, distmat_fn=None, output_dir=None,
+                     device=None):
+    """CMC/mAP (and multi-query) from features and the roidb's marks.  On
+    the card the distance matrix and, with ``TPU.DEVICE_EVAL``, the
+    single-query metrics are computed there."""
+    if cfg.REID.VIS:
+        raise NotImplementedError(
+            'REID.VIS (rank-list images) is not ported yet (ROADMAP slice 5)')
+    device = resolve_device(device)
+    ids = np.array([eval_lib.parse_im_name(e['im_name'], 'id')
+                    for e in roidb])
+    cams = np.array([eval_lib.parse_im_name(e['im_name'], 'cam')
+                     for e in roidb])
+    marks = np.array([e['mark'] for e in roidb])
+    on_card = device.type == 'cuda'
+    if distmat_fn is None and on_card:
+        from pps_tpu_torch.ops.distance import euclidean_distmat
+
+        def distmat_fn(q, g):
+            return euclidean_distmat(
+                torch.as_tensor(q, dtype=torch.float32, device=device),
+                torch.as_tensor(g, dtype=torch.float32, device=device))
+    return eval_lib.evaluate(
+        feats, ids, cams, marks, to_re_rank=cfg.REID.RERANK,
+        distmat_fn=distmat_fn,
+        device_single_query=on_card and bool(cfg.TPU.DEVICE_EVAL),
+        device=device)
+
+
+def run_inference(cfg, weights_file=None, output_dir=None, decode_fn=None,
+                  device=None):
+    """The test_net driver: features and metrics for every dataset of
+    ``TEST.DATASETS``.  Returns {dataset: results}.  Without an
+    ``output_dir`` the artifacts go to <OUTPUT_DIR>/test/<dataset>/."""
+    weights_file = weights_file or cfg.TEST.WEIGHTS
+    if cfg.REID.RERANK:  # refused before extracting, not after
+        raise NotImplementedError(eval_lib.RERANK_TODO)
+    from pps_tpu_torch.config import get_output_dir
+    results = {}
+    datasets = cfg.TEST.DATASETS
+    if isinstance(datasets, str):
+        datasets = (datasets,)
+    for ds in datasets:
+        ds_out = output_dir or get_output_dir((ds,), training=False)
+        feats, roidb = test_net(cfg, weights_file, ds, output_dir=ds_out,
+                                decode_fn=decode_fn, device=device)
+        results[ds] = evaluate_dataset(cfg, feats, roidb, output_dir=ds_out,
+                                       device=device)
+    return results

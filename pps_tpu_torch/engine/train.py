@@ -1,0 +1,372 @@
+"""Training driver on one device: epoch loop, LR feed, checkpoints,
+auto-resume and preemption (counterpart of ``pps_tpu/engine/train.py``).
+
+One ``make_train_step`` call per iteration; the TRIPLET_LOSS_CROSS
+alternation comes from the pure ``EpochSchedule``; the momentum is
+corrected when the LR changes; reference-pkl snapshots per epoch with the
+JAX package's names and auto-resume contract; a NaN abort; ``json_stats``
+lines.
+
+* Per-step randomness (augmentation, dropout) comes from one generator on
+  the device, reseeded each step from (RNG_SEED + 1, global step) alone,
+  the counterpart of ``jax.random.fold_in(base, global_step)``: a resumed
+  run draws exactly what a continuous run draws at the same step.
+* No host sync per step: the step returns its logs on the device and
+  ``TrainingStats`` reads them back only when a line prints.  The NaN
+  abort therefore fires at the next printed line, at the latest the line
+  forced at each epoch's end, before that epoch's snapshot is taken.
+* Snapshots: the step returns new tensors and leaves its inputs as they
+  were, so an epoch's final state needs no device copy.  Its D2H copies
+  start on a side stream into pinned memory; one background writer waits
+  for them, then pickles, with one write in flight.
+* Not ported: orbax checkpoints (``TPU.CKPT_FORMAT: orbax``), multi-GPU
+  and multi-process training, and the jaxpr dump (ROADMAP slice 8).
+"""
+
+import logging
+import os
+import signal
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from pps_tpu_torch.data.json_dataset import combined_roidb_for_training
+from pps_tpu_torch.data.loader import ReIDLoader
+from pps_tpu_torch.device import resolve_device
+from pps_tpu_torch.engine import checkpoint as ckpt_lib
+from pps_tpu_torch.engine.stats import TrainingStats
+from pps_tpu_torch.models.model import build_model
+from pps_tpu_torch.parallel import train_step as ts_lib
+from pps_tpu_torch.solver import lr_policy
+from pps_tpu_torch.solver import optimizer as opt_lib
+
+logger = logging.getLogger(__name__)
+
+_MULTI_TODO = '{} is not ported yet (ROADMAP slice 8: multi-GPU)'
+
+# SIGTERM (maintenance events, spot capacity) sets this flag; the loop
+# checkpoints after the in-flight step and raises `Preempted`, so a
+# restarted job resumes mid-epoch, losing at most one step.
+_PREEMPT = threading.Event()
+
+
+def request_preemption(signum=None, frame=None):
+    """Ask the running train_model to checkpoint and stop after the
+    in-flight step (safe from signal handlers and other threads)."""
+    _PREEMPT.set()
+
+
+class Preempted(Exception):
+    """Raised by train_model once a preemption checkpoint is written.
+    Carries (epoch, step, path) of the resume point; the CLI exits 75
+    (EX_TEMPFAIL: run the same command again)."""
+
+    def __init__(self, epoch, step, path):
+        super(Preempted, self).__init__(
+            'preempted after {} steps of epoch {}; resume point {}'
+            .format(step, epoch, path))
+        self.epoch = epoch
+        self.step = step
+        self.path = path
+
+
+def step_seed(base, global_step):
+    """The seed of a step's draws: a pure function of (base, step)."""
+    return int(np.random.SeedSequence([base, global_step]).generate_state(
+        1, np.uint64)[0])
+
+
+def create_model(cfg, output_dir, device=None):
+    """Build the model and its initial or resumed state.  Returns
+    (model, params, state, opt_state, start_epoch, start_step,
+    resumed_final)."""
+    model = build_model(cfg, device=device)
+    params, state = model.init(torch.Generator().manual_seed(cfg.RNG_SEED))
+    opt_state = opt_lib.init_opt_state(
+        params, flavor=opt_lib.flavor_from_cfg(cfg),
+        iter_size=cfg.REID.ITER_SIZE)
+
+    final_path = os.path.join(output_dir, 'model_final.pkl')
+    if cfg.TRAIN.AUTO_RESUME and os.path.exists(final_path):
+        logger.info('model_final.pkl exists; skipping training')
+        return model, params, state, opt_state, -1, 0, True
+
+    start_epoch, start_step = 0, 0
+    if cfg.TRAIN.AUTO_RESUME:
+        path, epoch, step = ckpt_lib.find_resume_checkpoint(output_dir)
+        if path is not None:
+            if path.endswith('.orbax'):
+                raise NotImplementedError(_MULTI_TODO.format(
+                    'Resuming from an orbax checkpoint ({})'.format(path)))
+            logger.info('Auto-resuming from %s (epoch %d, step %d)',
+                        path, epoch, step)
+            params, state, opt_state = ckpt_lib.load_checkpoint(
+                path, model, params, state, opt_state=opt_state)
+            start_epoch, start_step = epoch, step
+    if start_epoch == 0 and start_step == 0 and cfg.TRAIN.WEIGHTS:
+        logger.info('Bootstrapping weights from %s', cfg.TRAIN.WEIGHTS)
+        params, state, _ = ckpt_lib.load_checkpoint(
+            cfg.TRAIN.WEIGHTS, model, params, state)
+    return model, params, state, opt_state, start_epoch, start_step, False
+
+
+def _check_ported(cfg):
+    if cfg.TPU.CKPT_FORMAT != 'pkl':
+        raise NotImplementedError(_MULTI_TODO.format(
+            'TPU.CKPT_FORMAT {}'.format(cfg.TPU.CKPT_FORMAT)))
+    if cfg.NUM_GPUS != 1:
+        raise NotImplementedError(_MULTI_TODO.format(
+            'NUM_GPUS {}'.format(cfg.NUM_GPUS)))
+    if (torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        raise NotImplementedError(_MULTI_TODO.format(
+            'Multi-process training'))
+    if os.environ.get('PPS_TPU_DUMP_JAXPR'):
+        raise NotImplementedError(_MULTI_TODO.format(
+            'The jaxpr dump (PPS_TPU_DUMP_JAXPR)'))
+
+
+def _fetch_async(train_state, device):
+    """Start the D2H copies of (params, state, momentum) and return
+    (host tensors, event).  On the card they run on a side stream into
+    pinned memory, after the work queued so far; on the CPU the tensors
+    are already the host's (the step never writes into them)."""
+    tree = {'params': train_state['params'], 'state': train_state['state'],
+            'momentum': train_state['opt']['momentum']}
+    if device.type != 'cuda':
+        return tree, None
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        host = {}
+        for k, d in tree.items():
+            host[k] = {}
+            for n, t in d.items():
+                # the next steps drop these tensors; their memory must not
+                # be reused before the side stream has read them
+                t.record_stream(side)
+                host[k][n] = t.to('cpu', non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(side)
+    return host, done
+
+
+def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
+                num_workers=None, log_period=None, preempt_event=None,
+                device=None):
+    """Run the training schedule.  Returns {epoch: checkpoint path} plus
+    'final'.
+
+    While the loop runs in the main thread, SIGTERM is wired to
+    ``request_preemption``: the in-flight step finishes, a mid-epoch
+    resume checkpoint ``model_preempt_epoch{E}_step{S}.pkl`` is written
+    synchronously and ``Preempted`` is raised.  ``preempt_event`` (any
+    object with ``is_set`` and ``clear``) replaces the module's flag.
+
+    output_dir defaults to <OUTPUT_DIR>/train/<dataset>/; num_workers to
+    DATA_LOADER.NUM_THREADS; roidb and decode_fn are injectable.  The
+    model, its steps and its data live on ``device`` (default CUDA).
+    ``PPS_TPU_PROFILE_DIR`` set: a ``torch.profiler`` trace of global
+    steps [5, 15) is written there as a Chrome trace.
+    """
+    _check_ported(cfg)
+    device = resolve_device(device)
+    if output_dir is None:
+        from pps_tpu_torch.config import get_output_dir
+        output_dir = get_output_dir(cfg.TRAIN.DATASETS, training=True)
+    os.makedirs(output_dir, exist_ok=True)
+    checkpoints = {}
+
+    model, params, state, opt_state, start_epoch, resume_step, done = \
+        create_model(cfg, output_dir, device=device)
+    if done:
+        checkpoints['final'] = os.path.join(output_dir, 'model_final.pkl')
+        return checkpoints
+
+    if roidb is None:
+        roidb, _ = combined_roidb_for_training(
+            cfg.TRAIN.DATASETS, use_flipped=cfg.TRAIN.USE_FLIPPED)
+    meta = opt_lib.make_param_meta(params, cfg)
+    # TRAIN.FREEZE_AT / FREEZE_CONV_BODY: frozen params get no update
+    trainable = opt_lib.trainable_from_cfg(cfg, params)
+    step_fn = ts_lib.make_train_step(model, cfg, meta, trainable=trainable,
+                                     device=device)
+    loader = ReIDLoader(roidb, cfg, num_workers=num_workers,
+                        decode_fn=decode_fn, device=device,
+                        raw=bool(cfg.TPU.DEVICE_AUGMENT))
+    if start_epoch > 0:
+        loader.skip_epochs(start_epoch)  # the samplers as a continuous run
+    sched = loader.schedule
+    stats = TrainingStats(sched.total_steps(), log_period=log_period,
+                          device=device)
+    train_state = {'params': params, 'state': state, 'opt': opt_state}
+    generator = torch.Generator(device=device)
+    base_seed = cfg.RNG_SEED + 1
+    global_step = sched.steps_before_epoch(start_epoch) + resume_step
+    start_step = global_step
+    # the LR of the last trained step, so a resumed run fires the momentum
+    # correction a continuous run fires at this boundary (the LR is a
+    # pure function of (epoch, step))
+    cur_lr = None
+    if global_step > 0:
+        if resume_step > 0:
+            pe, pi = start_epoch, resume_step - 1
+        else:
+            pe, pi = start_epoch - 1, -1
+            while pe >= 0:
+                pi = sched.epoch_len(pe) - 1
+                if pi >= 0:
+                    break
+                pe -= 1
+        if pe >= 0 and pi >= 0:
+            cur_lr = float(lr_policy.get_lr_at_iter(
+                cfg, sched.lr_iter(pe, pi), pe, sched.ipe))
+    snapshot_period = max(1, cfg.TRAIN.SNAPSHOT_ITERS)
+
+    profile_dir = os.environ.get('PPS_TPU_PROFILE_DIR')
+    profile_window = (5, 15)
+    prof = None
+
+    saver = ThreadPoolExecutor(1)  # the background checkpoint writer
+    saver_fut = None
+
+    def write_snapshot(path, host, done):
+        if done is not None:
+            done.synchronize()  # the D2H copies have landed
+        ckpt_lib.save_checkpoint(path, model, host['params'], host['state'],
+                                 opt_state={'momentum': host['momentum']},
+                                 cfg=cfg)
+
+    preempt = preempt_event if preempt_event is not None else _PREEMPT
+    preempt.clear()  # a stale flag must not stop the fresh run at step 1
+    old_sig, sig_installed = None, False
+    if threading.current_thread() is threading.main_thread():
+        try:
+            old_sig = signal.signal(signal.SIGTERM, request_preemption)
+            sig_installed = True
+        except (ValueError, OSError):  # no signal support here
+            pass
+    try:
+        for ep in range(start_epoch, cfg.SOLVER.MAX_ITER):
+            ep_start = resume_step if ep == start_epoch else 0
+            for i, loss_scale, batch in loader.iter_epoch(ep, ep_start):
+                if profile_dir and global_step == profile_window[0]:
+                    prof = _start_profile(device)
+                if prof is not None and global_step == profile_window[1]:
+                    _stop_profile(prof, profile_dir, device)
+                    prof = None
+                if global_step == start_step + stats.LOG_PERIOD:
+                    # shed the first iterations' outliers from time/ETA
+                    logger.info('Resetting iteration timer after warm-up')
+                    stats.ResetIterTimer()
+                stats.IterTic()
+                lr = float(lr_policy.get_lr_at_iter(
+                    cfg, sched.lr_iter(ep, i), ep, sched.ipe))
+                if cur_lr is not None and cur_lr != lr:
+                    ratio = opt_lib.get_lr_change_ratio(cur_lr, lr)
+                    if ratio > cfg.SOLVER.LOG_LR_CHANGE_THRESHOLD:
+                        logger.info(
+                            'Changing learning rate %.6f -> %.6f at '
+                            'iter %d', cur_lr, lr, global_step)
+                    if (cfg.SOLVER.SCALE_MOMENTUM and cur_lr > 1e-7 and
+                            ratio > cfg.SOLVER.SCALE_MOMENTUM_THRESHOLD):
+                        logger.info('LR change %.6f -> %.6f; scaling '
+                                    'update history by %.6f',
+                                    cur_lr, lr, lr / cur_lr)
+                        train_state['opt'] = opt_lib.correct_momentum(
+                            train_state['opt'], lr / cur_lr)
+                cur_lr = lr
+                generator.manual_seed(step_seed(base_seed, global_step))
+                train_state, logs = step_fn(train_state, batch, lr,
+                                            loss_scale, generator)
+                stats.IterToc()
+                stats.UpdateIterStats(logs, mb_qsize=loader.qsize())
+                # a line at each epoch's end, so short triplet epochs log
+                stats.LogIterStats(global_step, lr, extra={'epoch': ep},
+                                   force=(i == sched.epoch_len(ep) - 1))
+                global_step += 1
+                if stats.loss_is_nan():
+                    raise FloatingPointError('Loss is NaN')
+                if preempt.is_set():
+                    # checkpoint synchronously (the grace window is
+                    # short; durability before exit beats overlap)
+                    if saver_fut is not None:
+                        saver_fut.result()
+                        saver_fut = None
+                    done_steps = i + 1
+                    ppath = os.path.join(
+                        output_dir, 'model_preempt_epoch{}_step{}.pkl'.format(
+                            ep, done_steps))
+                    ckpt_lib.save_checkpoint(
+                        ppath, model, train_state['params'],
+                        train_state['state'], opt_state=train_state['opt'],
+                        cfg=cfg)
+                    logger.info('preemption requested: wrote %s (epoch '
+                                '%d, %d/%d steps); exiting', ppath, ep,
+                                done_steps, sched.epoch_len(ep))
+                    raise Preempted(ep, done_steps, ppath)
+
+            # per-epoch snapshot; the shortened triplet epochs get none
+            if ep % snapshot_period == 0 and not sched.is_triplet_epoch(ep):
+                path = os.path.join(output_dir,
+                                    'model_epoch{}.pkl'.format(ep + 1))
+                host, copied = _fetch_async(train_state, device)
+                if saver_fut is not None:
+                    saver_fut.result()  # surface errors; one in flight
+                saver_fut = saver.submit(write_snapshot, path, host, copied)
+                checkpoints[ep] = path
+    finally:
+        # an in-flight snapshot is valid even when the loop aborts, so let
+        # it finish.  Its failure is fatal on the normal path; while the
+        # loop is already unwinding it is logged instead of masking the
+        # first error (checked before result(), whose own except would
+        # change sys.exc_info)
+        unwinding = sys.exc_info()[0] is not None
+        if sig_installed:
+            try:
+                signal.signal(signal.SIGTERM,
+                              signal.SIG_DFL if old_sig is None else old_sig)
+            except (ValueError, OSError):
+                pass
+        if prof is not None:
+            _stop_profile(prof, profile_dir, device)
+        try:
+            if saver_fut is not None:
+                saver_fut.result()
+        except Exception:
+            if not unwinding:
+                raise
+            logger.exception('background checkpoint write failed')
+        finally:
+            saver.shutdown(wait=True)
+
+    # model_final.pkl is also the training-complete marker of auto-resume
+    final_path = os.path.join(output_dir, 'model_final.pkl')
+    ckpt_lib.save_checkpoint(final_path, model, train_state['params'],
+                             train_state['state'],
+                             opt_state=train_state['opt'], cfg=cfg)
+    checkpoints['final'] = final_path
+    return checkpoints
+
+
+def _start_profile(device):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == 'cuda':
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir, device):
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, 'train_steps.trace.json')
+    prof.export_chrome_trace(path)
+    logger.info('wrote a profiler trace of the train steps: %s', path)

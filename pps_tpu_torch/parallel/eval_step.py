@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from pps_tpu_torch.data.device_preprocess import preprocess_on_device
-from pps_tpu_torch.device import resolve_device
+from pps_tpu_torch.device import Transfer, resolve_device
 
 
 def make_extract_fn(model, flip_tta=False, device_preproc=None, device=None):
@@ -56,10 +56,8 @@ def extract_features(extract_fn, params, state, images, batch_size):
     result is fetched, so the copy overlaps compute.  Returns [N, E]
     float32 numpy.
     """
-    device = extract_fn.device
+    transfer = Transfer(extract_fn.device)
     n = images.shape[0]
-    cuda = device.type == 'cuda'
-    copy_stream = torch.cuda.Stream(device) if cuda else None
 
     def put(start):
         chunk = images[start:start + batch_size]
@@ -67,12 +65,7 @@ def extract_features(extract_fn, params, state, images, batch_size):
         if pad:
             chunk = np.concatenate(
                 [chunk, np.repeat(chunk[-1:], pad, axis=0)], axis=0)
-        host = torch.from_numpy(np.ascontiguousarray(chunk))
-        if not cuda:
-            return host, pad
-        with torch.cuda.stream(copy_stream):
-            dev = host.pin_memory().to(device, non_blocking=True)
-        return dev, pad
+        return transfer.put(chunk), pad
 
     starts = list(range(0, n, batch_size))
     out = []
@@ -80,11 +73,7 @@ def extract_features(extract_fn, params, state, images, batch_size):
     next_dev = put(starts[0]) if starts else None
     for i in range(len(starts)):
         dev, pad = next_dev
-        if cuda:
-            # compute waits for this batch's copy; the caching allocator
-            # must not hand its memory back before compute has used it
-            torch.cuda.current_stream(device).wait_stream(copy_stream)
-            dev.record_stream(torch.cuda.current_stream(device))
+        dev = transfer.ready(dev)
         feats = extract_fn(params, state, dev)  # queued, not waited on
         if i + 1 < len(starts):
             next_dev = put(starts[i + 1])       # overlap H2D with compute

@@ -5,6 +5,8 @@ downstream log parsers (loss-vs-mAP plotting) read as an API.
 """
 
 import json
+import logging
+import sys
 
 import numpy as np
 
@@ -43,3 +45,30 @@ class SmoothedValue(object):
 
     def GetAverageValue(self):
         return float(np.mean(self.deque_vals))
+
+
+def send_email(subject, body, to):
+    """Failure notifier over local SMTP.  Delivery failures are logged,
+    never raised: a missing mail daemon must not hide the failure being
+    reported."""
+    import smtplib
+    from email.mime.text import MIMEText
+    try:
+        s = smtplib.SMTP('localhost')
+        mime = MIMEText(body)
+        mime['Subject'] = subject
+        mime['To'] = to
+        s.sendmail('pps_tpu_torch', to, mime.as_string())
+        s.quit()
+    except (OSError, smtplib.SMTPException) as e:
+        logging.getLogger(__name__).warning('send_email to %s failed: %s',
+                                            to, e)
+
+
+def setup_logging(name):
+    """INFO logging to stdout in the reference's format (root handlers
+    cleared first, so an earlier basicConfig cannot block it)."""
+    fmt = '%(levelname)s %(filename)s:%(lineno)4d: %(message)s'
+    logging.root.handlers = []
+    logging.basicConfig(level=logging.INFO, format=fmt, stream=sys.stdout)
+    return logging.getLogger(name)

@@ -244,3 +244,80 @@ def test_train_step_card_f32_matches_cpu(cuda):
     for k in state:
         assert _rms(gn['state'][k].cpu() - cn['state'][k]) <= \
             1e-3 * _rms(cn['state'][k]), k
+
+
+def _tiny_roidb(n_ids=4, per_id=4, hw=(48, 20)):
+    """A roidb and a decode_fn for it, without files or JAX."""
+    roidb = []
+    for pid in range(1, n_ids + 1):
+        for j in range(per_id):
+            iid = len(roidb) + 1
+            roidb.append({'im_name': '{:08d}_{:04d}_{:08d}.jpg'.format(
+                pid, j % 2 + 1, iid), 'image': str(iid), 'gt_class': pid,
+                'height': hw[0], 'width': hw[1], 'flipped': j % 2 == 1,
+                'mark': 0 if j == 0 else 1})
+
+    def decode(path):
+        return np.random.RandomState(int(path)).randint(
+            0, 256, hw + (3,)).astype(np.uint8)
+    return roidb, decode
+
+
+def test_loader_batches_on_card_equal_host(cuda):
+    from pps_tpu_torch.data.loader import ReIDLoader
+    roidb, decode = _tiny_roidb()
+    cfg = flagship_cfg(scale=(32, 96), num_classes=5, ims_per_batch=8, p=4,
+                       k=2, dtype='float32')
+    host = [b for _, _, b in ReIDLoader(roidb, cfg, num_workers=2,
+                                        decode_fn=decode).iter_epoch(1)]
+    card = [b for _, _, b in ReIDLoader(roidb, cfg, num_workers=2,
+                                        decode_fn=decode, device=cuda,
+                                        device_prefetch=3).iter_epoch(1)]
+    assert len(card) == len(host) > 0
+    for c, h in zip(card, host):
+        for k in h:
+            assert c[k].device.type == 'cuda'
+            np.testing.assert_array_equal(c[k].cpu().numpy(), h[k])
+
+
+def test_cmc_map_device_card_matches_cpu(cuda):
+    from pps_tpu_torch.evaluation.device_eval import cmc_map_device
+    rng = np.random.RandomState(7)
+    dist = np.round(rng.rand(50, 300), 2).astype(np.float32)  # many ties
+    dist[3, :40] = np.inf
+    dist[4, 10:20] = np.nan
+    q_ids, g_ids = rng.randint(0, 12, 50), rng.randint(0, 12, 300)
+    q_cams, g_cams = rng.randint(0, 4, 50), rng.randint(0, 4, 300)
+    m_c, c_c = cmc_map_device(dist, q_ids, g_ids, q_cams, g_cams,
+                              device='cpu')
+    m_g, c_g = cmc_map_device(torch.tensor(dist, device=cuda), q_ids, g_ids,
+                              q_cams, g_cams)
+    assert c_g.device.type == 'cuda'
+    np.testing.assert_array_equal(c_g.cpu().numpy(), c_c.numpy())
+    assert float(m_g) == pytest.approx(float(m_c), rel=0, abs=1e-12)
+
+
+def test_train_model_on_card_snapshot_equals_final(cuda, tmp_path):
+    """Two epochs on the card: epoch 0's snapshot (copied on a side
+    stream, written by the background writer) and model_final.pkl hold
+    what the run held at those points; the final one loads back."""
+    import shutil
+    from pps_tpu_torch.config import merge_cfg_from_list
+    from pps_tpu_torch.engine.train import train_model
+    from pps_tpu_torch.utils.io import load_object
+    roidb, decode = _tiny_roidb()
+    cfg = flagship_cfg(scale=(32, 96), num_classes=5, ims_per_batch=8, p=4,
+                       k=2, dtype='float32')
+    cfg.immutable(False)
+    merge_cfg_from_list(['SOLVER.MAX_ITER', '1', 'TRAIN.SNAPSHOT_ITERS', '1',
+                         'SOLVER.WARM_UP_ITERS', '0'])
+    try:
+        ck = train_model(cfg, output_dir=str(tmp_path), roidb=roidb,
+                         decode_fn=decode, num_workers=2, device=cuda)
+        snap = load_object(ck[0])['blobs']
+        final = load_object(ck['final'])['blobs']
+        assert sorted(snap) == sorted(final)
+        for k in final:
+            np.testing.assert_array_equal(snap[k], final[k], err_msg=k)
+    finally:
+        shutil.rmtree(tmp_path, ignore_errors=True)
