@@ -51,11 +51,33 @@ is non-zero:
               decode and the model timed apart), the card's CMC/mAP equal
               the numpy metrics on the same distance matrix, features.pkl
               loads.
+13. remat   - the flagship train step with TPU.REMAT on and off from the
+              same state and draws: the same loss and BN state; ms/step
+              and peak memory of both.
+14. augment_agree - 64 mixed-size decodes on the padded wire with crops,
+              HSV, blur and erasing: the card's uint8 stage equals the
+              CPU's bit for bit, the float32 output within 1e-4.
+15. train_duke - ``train_model`` on configs/duke/pps_crm_triplet_R-50_1x.yaml
+              (HSV and blur turned on) over a synthetic Duke-shaped dataset
+              of mixed decode sizes: every batch on the padded wire, the
+              loss finite and falling.
+16. host_chain - 20 steps of the same with TPU.DEVICE_AUGMENT False and
+              TPU.WIRE_DTYPE bfloat16: every batch a float32 host-chain
+              batch, cast to bfloat16; the host's decode + augment rate.
+17. train_cuhk03 - one epoch of configs/cuhk03/pps_crm_triplet_R-50_1x.yaml
+              over a synthetic CUHK03-shaped dataset (padded wire).
+18. test_duke, test_duke_fliptta, test_cuhk03 - ``run_inference`` with
+              each yaml's final pkl (the Duke one for the flip-TTA yaml):
+              every batch 'u8p', features through the pkl equal the
+              in-memory state's, the card's CMC/mAP equal numpy's.
+19. serve_mixed - QueryEmbedder on 4-image groups of mixed sizes (host
+              preprocessing, the model on the card) and a search of the
+              Duke gallery, held against a brute force.
 
 The driver phases' own output (json_stats and Single Query lines, logs)
 goes to build/chip_smoke_logs/<phase>.log.  Then a {"kernels": [...]}
-line (launches counted while the main path, phases 3, 5, 7 and 10-12,
-ran), the nvidia-smi line, and last {"ok": true, "device": {...}}.
+line (launches counted while the main path, phases 3, 5, 7, 10-12 and
+15-19, ran), the nvidia-smi line, and last {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -67,6 +89,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -92,6 +115,32 @@ DRIVER_EPOCHS = 3                   # of the yaml's 121
 PREEMPT_AFTER = 93 + 40             # steps: 40 steps into epoch 1
 NOISE_BANK = 97                     # per-image noise patterns (a prime)
 DISTRACTORS, DISTRACTOR_SEED = 389, 100000  # patterns shared across ids
+
+# the mixed-size datasets: each image's decode size is SIZE_TABLE's entry
+# at its image id modulo the table's length (a prime), drawn once per
+# dataset: height uniform over an integer range, width = round(height x
+# an aspect ratio uniform over a range), so every crop is taller than wide
+SIZE_TABLE = 4093
+DUKE = dict(name='duke', yaml=os.path.join(ROOT, 'configs', 'duke',
+                                           'pps_crm_triplet_R-50_1x.yaml'),
+            train_ids=702, train_per_id=4, cams=8,
+            query_ids=702, queries=2228, gallery_ids=1110, gallery=17661,
+            heights=(120, 290), aspect=(0.33, 0.5), seed=7)
+CUHK03 = dict(name='cuhk03', yaml=os.path.join(ROOT, 'configs', 'cuhk03',
+                                               'pps_crm_triplet_R-50_1x.yaml'),
+              train_ids=767, train_per_id=4, cams=2,
+              query_ids=700, queries=1400, gallery_ids=700, gallery=5328,
+              heights=(96, 240), aspect=(0.35, 0.5), seed=8)
+DUKE_FLIPTTA_YAML = os.path.join(ROOT, 'configs', 'duke',
+                                 'pps_crm_triplet_R-50_1x_fliptta.yaml')
+DUKE_EPOCHS, CUHK03_EPOCHS = 2, 1   # of the yamls' 121
+MIXED_AUG = ['REID.HSV_JITTER_PROB', '0.5', 'REID.SATURATION_RANGE', '50',
+             'REID.HUE_RANGE', '10', 'REID.VALUE_RANGE', '50',
+             'REID.GAUSSIAN_BLUR_PROB', '0.5',
+             'REID.GAUSSIAN_BLUR_KERNEL', '7']
+HOST_CHAIN_STEPS = 20
+MEM_CHECK_IMAGES = 2048             # test images re-extracted in memory
+REMAT_STEPS = 5
 
 # tolerances, each with its reason
 F32_RTOL, F32_ATOL = 1e-3, 2e-4   # card f32 vs CPU f32: sums in another
@@ -120,6 +169,11 @@ RESUME_LOSS_RTOL = 1e-4           # the first resumed step's loss vs the
 FEAT_ATOL = 1e-6                  # features through model_final.pkl vs the
 #   in-memory final state: the same weights bit for bit, the same kernels
 MAP_ATOL = 1e-6                   # card mAP (float64 AP sums) vs numpy's
+AUG_F32_ATOL = 1e-4               # augment card vs CPU, float32 output:
+#   the resize products of |x| <= 255 summed in another order (a few
+#   float32 ulps of the partial sums; the port vs the JAX package: 4.6e-5)
+REMAT_LOSS_RTOL = 1e-5            # REMAT on vs off: the same forward
+REMAT_STATE_ATOL = 1e-6           # BN updates come from the first forward
 DIST2_ATOL = 1e-4                 # index vs brute force, on squared
 #   distances: d^2 = |q|^2 + |g|^2 - 2 q.g cancels O(1) terms, and the two
 #   sides sum 3968 float32 products in other orders (other GEMM shapes,
@@ -703,11 +757,10 @@ class MarketDecoder(object):
                        255).astype(np.uint8)
 
 
-def write_market(root):
-    """trainval.json (TRAIN_IDS x TRAIN_PER_ID, 6 cameras) and test.json
-    (QUERIES queries and GALLERY gallery images of TEST_IDS identities,
-    each query's identity in every camera of the gallery) under ``root``,
-    registered as market1501_trainval / market1501_test."""
+def write_reid(root, prefix, train, test, size_of=None):
+    """trainval.json and test.json under ``root`` from (pid, cam, mark)
+    lists, registered as <prefix>_trainval / <prefix>_test; each image's
+    height/width from ``size_of(image id)`` (default: RAW_HW)."""
     from pps_tpu_torch.data import catalog
     imdir = os.path.join(root, 'images')
     os.makedirs(imdir, exist_ok=True)
@@ -716,8 +769,9 @@ def write_market(root):
         images, anns, cats = [], [], {}
         for iid, (pid, cam, mark) in enumerate(entries, start=1):
             cats[pid] = {'id': pid, 'name': '{:08d}'.format(pid)}
-            images.append({'id': iid, 'width': RAW_HW[1],
-                           'height': RAW_HW[0], 'file_name':
+            h, w = RAW_HW if size_of is None else size_of(iid)
+            images.append({'id': iid, 'width': int(w), 'height': int(h),
+                           'file_name':
                            '{:08d}_{:04d}_{:08d}.jpg'.format(pid, cam, iid)})
             ann = {'id': iid, 'image_id': iid, 'category_id': pid}
             if mark is not None:
@@ -727,14 +781,24 @@ def write_market(root):
         with open(path, 'w') as f:
             json.dump({'images': images, 'annotations': anns,
                        'categories': list(cats.values())}, f)
-        catalog.register_dataset('market1501_' + split, imdir, path)
+        catalog.register_dataset(prefix + '_' + split, imdir, path)
 
-    write('trainval', [(pid, j % 6 + 1, None) for pid in
-                       range(1, TRAIN_IDS + 1) for j in range(TRAIN_PER_ID)])
-    write('test', [(1000 + i % TEST_IDS, (i // TEST_IDS) % 6 + 1, 0)
-                   for i in range(QUERIES)]
-          + [(1000 + j % TEST_IDS, (j // TEST_IDS) % 6 + 1, 1)
-             for j in range(GALLERY)])
+    write('trainval', train)
+    write('test', test)
+
+
+def write_market(root):
+    """trainval.json (TRAIN_IDS x TRAIN_PER_ID, 6 cameras) and test.json
+    (QUERIES queries and GALLERY gallery images of TEST_IDS identities,
+    each query's identity in every camera of the gallery) under ``root``,
+    registered as market1501_trainval / market1501_test."""
+    write_reid(root, 'market1501',
+               [(pid, j % 6 + 1, None) for pid in range(1, TRAIN_IDS + 1)
+                for j in range(TRAIN_PER_ID)],
+               [(1000 + i % TEST_IDS, (i // TEST_IDS) % 6 + 1, 0)
+                for i in range(QUERIES)]
+               + [(1000 + j % TEST_IDS, (j // TEST_IDS) % 6 + 1, 1)
+                  for j in range(GALLERY)])
 
 
 def driver_cfg(out_dir):
@@ -754,6 +818,16 @@ def driver_cfg(out_dir):
     return cfg
 
 
+def wire_kind(batch):
+    """'u8p' (padded uint8), 'u8' (raw uint8) or 'data' (the host chain's
+    float32 wire, with its dtype)."""
+    if 'valid_hw' in batch:
+        return 'u8p'
+    if 'data_u8' in batch:
+        return 'u8'
+    return 'data:' + str(batch['data'].dtype).replace('torch.', '')
+
+
 class StepRecorder(object):
     """While active, records what ``train_model`` does at each step: the
     (epoch, step in epoch), the epoch plans' batch indices, a CUDA event
@@ -762,7 +836,7 @@ class StepRecorder(object):
 
     def __init__(self):
         self.plans, self.at, self.events, self.losses = {}, [], [], []
-        self.qsize, self.state = [], None
+        self.qsize, self.kinds, self.state = [], [], None
 
     def __enter__(self):
         import torch
@@ -783,6 +857,7 @@ class StepRecorder(object):
             for item in iter_epoch(loader, ep, start_step):
                 self.at.append((ep, item[0]))
                 self.qsize.append(loader.qsize())
+                self.kinds.append(wire_kind(item[2]))
                 yield item
 
         def make_step(*args, **kwargs):
@@ -1060,6 +1135,476 @@ def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec):
              out_dir, 'features.pkl')) / 1e6, log=log)
 
 
+# ---------------------------------------------------------------------------
+# REMAT, and the mixed-size datasets (Duke, CUHK03) through the drivers
+# ---------------------------------------------------------------------------
+
+
+def phase_remat(dev, gallery):
+    """The flagship step with TPU.REMAT off and on, from the same state and
+    draws: loss and BN state held, ms/step and peak memory of both."""
+    import torch
+    from pps_tpu_torch.data import device_augment as aug
+    from pps_tpu_torch.flagship import flagship_cfg
+    cfg = flagship_cfg()
+    n = TRAIN_P * TRAIN_K
+    _, step, ts = make_trainer(cfg, dev, seed=0)
+    batch = train_batch(gallery, TRAIN_P, TRAIN_K, cfg.MODEL.NUM_CLASSES,
+                        dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    draws = {'augment': aug.sample_params(gen, aug.augment_spec(cfg), n,
+                                          RAW_HW, dev),
+             'dropout_mask': torch.rand(n, 31, 128, generator=gen,
+                                        device=dev) < 0.8}
+    out = {}
+    for remat in (False, True):
+        cfg.immutable(False)
+        cfg.TPU.REMAT = remat
+        cfg.immutable(True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        new, logs = step(ts, batch, 0.01, 1.0, None, draws=draws)
+        loss = float(logs['loss'])
+        events = []
+        for _ in range(REMAT_STEPS + 1):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            if len(events) <= REMAT_STEPS:
+                step(ts, batch, 0.01, 1.0, None, draws=draws)
+        events[-1].synchronize()
+        ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+        out[remat] = {'loss': loss, 'state': new['state'],
+                      'ms_per_step': float(np.median(ms)),
+                      'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9}
+    flagship_cfg()  # REMAT back off in the global cfg
+    off, on = out[False], out[True]
+    loss_rel = abs(on['loss'] - off['loss']) / abs(off['loss'])
+    state_diff = max(float((on['state'][k] - off['state'][k]).abs().max())
+                     for k in off['state'])
+    if loss_rel > REMAT_LOSS_RTOL or state_diff > REMAT_STATE_ATOL:
+        raise AssertionError('REMAT on vs off: loss rel {}, BN state {}'
+                             .format(loss_rel, state_diff))
+    emit('remat', batch=n, dtype=cfg.MODEL.DTYPE, steps=REMAT_STEPS,
+         loss_off=off['loss'], loss_on=on['loss'], loss_rel=loss_rel,
+         loss_rtol=REMAT_LOSS_RTOL, state_max_abs_diff=state_diff,
+         state_atol=REMAT_STATE_ATOL,
+         ms_per_step_off=off['ms_per_step'], ms_per_step_on=on['ms_per_step'],
+         peak_mem_gb_off=off['peak_mem_gb'], peak_mem_gb_on=on['peak_mem_gb'])
+
+
+def size_table(spec):
+    """[SIZE_TABLE, 2] (H, W) decode sizes of a dataset (see SIZE_TABLE)."""
+    rng = np.random.RandomState(spec['seed'])
+    h = rng.randint(spec['heights'][0], spec['heights'][1] + 1, SIZE_TABLE)
+    w = np.round(h * rng.uniform(*spec['aspect'], size=SIZE_TABLE))
+    return np.stack([h, w.astype(np.int64)], axis=1)
+
+
+class MixedDecoder(MarketDecoder):
+    """MarketDecoder's images at the size the table gives the image id:
+    the 8x4 blocks upsampled to (h, w), plus a crop of a noise pattern."""
+
+    def __init__(self, table, seed=0):
+        super(MixedDecoder, self).__init__(seed)
+        self._table = table
+        hmax, wmax = table.max(axis=0)
+        rng = np.random.RandomState(seed + 1)
+        self._noise = rng.randint(-16, 17, size=(NOISE_BANK, hmax, wmax, 3)
+                                  ).astype(np.int16)
+
+    def size_of(self, iid):
+        return tuple(int(v) for v in self._table[iid % SIZE_TABLE])
+
+    def __call__(self, path):
+        name = os.path.basename(path)
+        pid, iid = int(name[:8]), int(name.split('_')[-1].split('.')[0])
+        h, w = self.size_of(iid)
+        mixed = (2 * self._block(pid) + self._block(
+            DISTRACTOR_SEED + iid % DISTRACTORS)) // 3
+        im = mixed[np.arange(h) * 8 // h][:, np.arange(w) * 4 // w]
+        return np.clip(im + self._noise[iid % NOISE_BANK, :h, :w], 0,
+                       255).astype(np.uint8)
+
+
+def write_mixed(root, spec, decode):
+    """A dataset of ``spec``'s widths, decode sizes from ``decode``:
+    train_ids x train_per_id train images over ``cams`` cameras; queries
+    of query_ids identities and a gallery of gallery_ids identities (the
+    query identities first), each in every camera in turn."""
+    c = spec['cams']
+    write_reid(
+        root, spec['name'],
+        [(pid, j % c + 1, None) for pid in range(1, spec['train_ids'] + 1)
+         for j in range(spec['train_per_id'])],
+        [(1000 + i % spec['query_ids'], (i // spec['query_ids']) % c + 1, 0)
+         for i in range(spec['queries'])]
+        + [(1000 + j % spec['gallery_ids'],
+            (j // spec['gallery_ids'] + 1) % c + 1, 1)
+           for j in range(spec['gallery'])],
+        size_of=decode.size_of)
+
+
+def pad_stats(roidb):
+    """The pad bucket of a roidb, its distinct sizes, and the images with
+    a pad of 1-2 px on an axis (the blur's double-reflect case)."""
+    hw = np.array([(e['height'], e['width']) for e in roidb])
+    bucket = hw.max(axis=0)
+    pad = bucket - hw
+    return {'bucket': bucket.tolist(),
+            'distinct_sizes': len({tuple(v) for v in hw}),
+            'pad_1_2_px': int(((pad >= 1) & (pad <= 2)).any(axis=1).sum()),
+            'taller_than_wide': bool((hw[:, 0] > hw[:, 1]).all())}
+
+
+def phase_augment_agree(dev, decode):
+    """64 mixed-size decodes on the padded wire, crops, HSV and blur at
+    probability 1 and erasing: card vs CPU from the same draws."""
+    import torch
+    from pps_tpu_torch.data import device_augment as aug
+    from pps_tpu_torch.data.json_dataset import combined_roidb_for_training
+    from pps_tpu_torch.data.minibatch import pad_to_bucket
+    roidb, _ = combined_roidb_for_training('duke_trainval')
+    entries = roidb[:BATCH]
+    ims = [decode(e['image']) for e in entries]
+    ph = max(im.shape[0] for im in ims)
+    pw = max(im.shape[1] for im in ims)
+    padded, valid = pad_to_bucket(ims, (ph, pw))
+    valid = torch.from_numpy(valid)
+    flipped = torch.tensor(np.arange(BATCH) % 2 == 1)
+    spec = dict(crop_prob=0.5, crop_ratio=0.8, hcrop_prob=0.5,
+                hcrop_ratio=0.8, hsv_prob=1.0, sat_range=50, hue_range=10,
+                val_range=50, blur_prob=1.0, blur_kernel=7, erase_prob=0.5,
+                sl=0.02, sh=0.4, r1=0.3, out_hw=(384, 128))
+    means = np.array([[[102.9801, 115.9465, 122.7717]]])
+    params = aug.sample_params(torch.Generator().manual_seed(0), spec, BATCH,
+                               (valid[:, 0], valid[:, 1]),
+                               torch.device('cpu'))
+    stages, real = [], aug.crop_resize_batch
+
+    def record(xf, *a):
+        stages.append(xf.cpu())
+        return real(xf, *a)
+    outs = {}
+    aug.crop_resize_batch = record
+    try:
+        for where in ('cpu', dev):
+            args = (torch.tensor(padded).to(where), flipped.to(where),
+                    {k: v.to(where) for k, v in params.items()}, spec, means)
+            t0 = time.perf_counter()
+            outs[str(where)] = aug.apply_augment(
+                *args, valid_hw=valid.to(where)).cpu()
+            outs[str(where) + '_s'] = time.perf_counter() - t0
+    finally:
+        aug.crop_resize_batch = real
+    if not torch.equal(stages[0], stages[1]):
+        raise AssertionError('augment: the uint8 stage differs, card vs CPU '
+                             '({} values)'.format(
+                                 int((stages[0] != stages[1]).sum())))
+    err = float((outs['cpu'] - outs[str(dev)]).abs().max())
+    if err > AUG_F32_ATOL:
+        raise AssertionError('augment: float32 output card vs CPU {}'.format(
+            err))
+    args = (torch.tensor(padded).to(dev), flipped.to(dev),
+            {k: v.to(dev) for k, v in params.items()}, spec, means)
+    ms = cuda_ms(lambda: aug.apply_augment(*args, valid_hw=valid.to(dev)),
+                 iters=10)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draw_ms = cuda_ms(lambda: aug.sample_params(
+        gen, spec, BATCH, (valid[:, 0].to(dev), valid[:, 1].to(dev)), dev),
+        iters=10)
+    emit('augment_agree', batch=BATCH, bucket=[ph, pw],
+         valid_sizes=len({tuple(v) for v in valid.tolist()}),
+         flipped=int(flipped.sum()), erased=int(params['erase_on'].sum()),
+         uint8_stage_bitwise=True, f32_max_abs=err, f32_atol=AUG_F32_ATOL,
+         apply_ms=ms, sample_params_ms=draw_ms,
+         cpu_apply_s=outs['cpu_s'])
+
+
+def mixed_cfg(spec, out_dir, epochs, extra=()):
+    """The dataset's yaml, cut: ``epochs`` epochs, a snapshot per epoch, no
+    bootstrap weights, HSV and blur on."""
+    from pps_tpu_torch.config import (cfg, reset_cfg, merge_cfg_from_file,
+                                      merge_cfg_from_list,
+                                      assert_and_infer_cfg)
+    reset_cfg()
+    merge_cfg_from_file(spec['yaml'])
+    merge_cfg_from_list(['TRAIN.WEIGHTS', "''",
+                         'SOLVER.MAX_ITER', str(epochs),
+                         'TRAIN.SNAPSHOT_ITERS', '1', 'OUTPUT_DIR', out_dir]
+                        + MIXED_AUG + list(extra))
+    assert_and_infer_cfg()
+    return cfg
+
+
+def phase_train_mixed(dev, out_root, spec, decode, epochs, phase,
+                      must_fall=True):
+    """train_model on a mixed-size dataset: every batch on the padded wire,
+    the loss finite and (``must_fall``) falling from the first 10 steps to
+    the last 10."""
+    import torch
+    from pps_tpu_torch.engine.train import train_model
+    cfg = mixed_cfg(spec, os.path.join(out_root, phase), epochs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with phase_log(phase) as log, StepRecorder() as rec:
+        t0 = time.perf_counter()
+        ckpts = train_model(cfg, decode_fn=decode, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    losses = torch.stack(rec.losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError('{}: non-finite train loss'.format(phase))
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    if must_fall and not last < first:
+        raise AssertionError('{}: loss did not fall: {} -> {}'.format(
+            phase, first, last))
+    kinds = sorted(set(rec.kinds))
+    if kinds != ['u8p']:
+        raise AssertionError('{}: batches off the padded wire: {}'.format(
+            phase, kinds))
+    step_ms = [a.elapsed_time(b) for a, b in zip(rec.events[:-1],
+                                                 rec.events[1:])]
+    ms = float(np.median(step_ms))
+    from pps_tpu_torch.data.json_dataset import combined_roidb_for_training
+    roidb, _ = combined_roidb_for_training(cfg.TRAIN.DATASETS)
+    emit(phase, config=os.path.relpath(spec['yaml'], ROOT),
+         num_classes=cfg.MODEL.NUM_CLASSES, entries=len(roidb),
+         sizes=pad_stats(roidb), epochs=epochs, steps=len(losses),
+         batch=BATCH, augment=MIXED_AUG, ms_per_step=ms,
+         ms_p90=float(np.percentile(step_ms, 90)), wall_s=seconds,
+         wall_ms_per_step=seconds / len(losses) * 1e3,
+         imgs_per_s=BATCH / ms * 1e3,
+         mb_qsize_median=float(np.median(rec.qsize)),
+         mb_qsize_min=int(min(rec.qsize)),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         loss_first10=[float(v) for v in losses[:10]],
+         loss_last10=[float(v) for v in losses[-10:]],
+         loss_first=first, loss_last=last,
+         wire_kinds={k: rec.kinds.count(k) for k in kinds},
+         checkpoints=sorted(os.listdir(os.path.dirname(ckpts['final']))),
+         log=log)
+    return rec, ckpts['final']
+
+
+def phase_host_chain(dev, out_root, decode):
+    """HOST_CHAIN_STEPS steps of train_model on the Duke data with the host
+    chain (TPU.DEVICE_AUGMENT False) and the bfloat16 wire."""
+    import torch
+    from pps_tpu_torch.data import minibatch
+    from pps_tpu_torch.data.json_dataset import combined_roidb_for_training
+    from pps_tpu_torch.engine.train import train_model
+    cfg = mixed_cfg(DUKE, os.path.join(out_root, 'host_chain'), 1,
+                    ['TPU.DEVICE_AUGMENT', 'False',
+                     'TPU.WIRE_DTYPE', 'bfloat16'])
+    roidb, _ = combined_roidb_for_training(cfg.TRAIN.DATASETS)
+    roidb = roidb[:HOST_CHAIN_STEPS * BATCH]
+    # the host's decode + augment rate on one thread
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    for b in range(4):
+        minibatch.get_minibatch(roidb[b * BATCH:(b + 1) * BATCH], cfg,
+                                decode_fn=decode, raw=False, rng=rng)
+    one_thread = 4 * BATCH / (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with phase_log('host_chain') as log, StepRecorder() as rec:
+        t0 = time.perf_counter()
+        train_model(cfg, roidb=roidb, decode_fn=decode, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    losses = torch.stack(rec.losses).cpu().numpy()
+    if len(losses) != HOST_CHAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError('host_chain: losses {}'.format(losses))
+    kinds = sorted(set(rec.kinds))
+    if kinds != ['data:bfloat16']:
+        raise AssertionError('host_chain: wire kinds {}'.format(kinds))
+    step_ms = [a.elapsed_time(b) for a, b in zip(rec.events[:-1],
+                                                 rec.events[1:])]
+    ms = float(np.median(step_ms))
+    emit('host_chain', config=os.path.relpath(DUKE['yaml'], ROOT),
+         steps=len(losses), batch=BATCH, wire_kinds={kinds[0]: len(losses)},
+         ms_per_step=ms, imgs_per_s=BATCH / ms * 1e3,
+         wall_s=seconds, wall_ms_per_step=seconds / len(losses) * 1e3,
+         mb_qsize_median=float(np.median(rec.qsize)),
+         mb_qsize_min=int(min(rec.qsize)),
+         decode_augment_imgs_per_s_one_thread=one_thread,
+         loader_threads=cfg.DATA_LOADER.NUM_THREADS,
+         losses=[float(v) for v in losses], log=log)
+
+
+def phase_test_mixed(dev, out_root, phase, yaml_path, final_pkl, decode,
+                     train_rec):
+    """run_inference on a mixed-size test split with a final pkl: every
+    batch padded, features through the pkl equal the in-memory state's on
+    the first MEM_CHECK_IMAGES images, the card's CMC/mAP equal numpy's."""
+    import torch
+    from pps_tpu_torch.engine import test as test_lib
+    from pps_tpu_torch.evaluation import evaluator as ev
+    from pps_tpu_torch.evaluation import metrics
+    from pps_tpu_torch.evaluation.device_eval import cmc_map_device
+    from pps_tpu_torch.data.minibatch import pad_to_bucket
+    from pps_tpu_torch.models.model import build_model
+    from pps_tpu_torch.ops.distance import euclidean_distmat
+    from pps_tpu_torch.config import (cfg, reset_cfg, merge_cfg_from_file,
+                                      merge_cfg_from_list,
+                                      assert_and_infer_cfg)
+    out_dir = os.path.join(out_root, phase)
+    reset_cfg()
+    merge_cfg_from_file(yaml_path)
+    merge_cfg_from_list(['OUTPUT_DIR', out_dir])
+    assert_and_infer_cfg()
+    seen = {}
+    extract = test_lib.extract_dataset_features
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = extract(*a, **k)
+        torch.cuda.synchronize()
+        seen['extract'] = (out, time.perf_counter() - t0)
+        return out
+    test_lib.extract_dataset_features = timed
+    try:
+        with phase_log(phase) as log:
+            t0 = time.perf_counter()
+            results = test_lib.run_inference(cfg, weights_file=final_pkl,
+                                             output_dir=out_dir,
+                                             decode_fn=decode, device=dev)
+            seconds = time.perf_counter() - t0
+    finally:
+        test_lib.extract_dataset_features = extract
+    lines = _read(log)
+    single = [ln for ln in lines if ln.startswith('Single Query:')]
+    print(phase + ': ' + single[0], flush=True)
+    kinds = json.loads([ln for ln in lines if 'batch kinds' in ln][-1]
+                       .split('batch kinds: ')[1])
+    feats, extract_s = seen['extract']
+    roidb = test_lib.roidb_for_test(cfg.TEST.DATASETS[0])
+    n = len(roidb)
+    if kinds['u8p'] != (n + BATCH - 1) // BATCH or kinds['u8'] or \
+            kinds['f32']:
+        raise AssertionError('{}: batch kinds {}'.format(phase, kinds))
+    if feats.shape != (n, 3968) or not np.isfinite(feats).all():
+        raise AssertionError('{}: features {}'.format(phase, feats.shape))
+    # the in-memory final state on the first images, in the same batches
+    # at the same wire shape: the first entry carries the split's bucket
+    # in its metadata (its decode is unchanged)
+    model = build_model(cfg, device=dev)
+    bucket = pad_stats(roidb)['bucket']
+    sub = ([dict(roidb[0], height=bucket[0], width=bucket[1])]
+           + roidb[1:MEM_CHECK_IMAGES])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mem = test_lib.stream_extract(
+        cfg, model, train_rec.state['params'], train_rec.state['state'],
+        sub, BATCH, decode_fn=decode,
+        flip_tta=bool(cfg.TEST.BBOX_AUG.ENABLED and cfg.TEST.BBOX_AUG.H_FLIP))
+    mem_s = time.perf_counter() - t0
+    # the host's part alone on the same images: decode threads, then the
+    # reflect padding to the bucket on one thread
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        ims = list(pool.map(lambda e: decode(e['image']), sub))
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for b in range(0, len(ims), BATCH):
+        pad_to_bucket(ims[b:b + BATCH], bucket)
+    pad_s = time.perf_counter() - t0
+    del ims
+    feat_diff = float(np.max(np.abs(mem - feats[:len(sub)])))
+    if feat_diff > FEAT_ATOL:
+        raise AssertionError('{}: pkl vs in-memory features {}'.format(
+            phase, feat_diff))
+    marks = np.array([e['mark'] for e in roidb])
+    ids = np.array([ev.parse_im_name(e['im_name'], 'id') for e in roidb])
+    cams = np.array([ev.parse_im_name(e['im_name'], 'cam') for e in roidb])
+    q, g = marks == 0, marks == 1
+    ft = torch.as_tensor(feats, device=dev)
+    dm = euclidean_distmat(ft[torch.as_tensor(q, device=dev)],
+                           ft[torch.as_tensor(g, device=dev)])
+    m_card, c_card = cmc_map_device(dm, ids[q], ids[g], cams[q], cams[g])
+    m_card, c_card = float(m_card), c_card.cpu().numpy()
+    host = dm.cpu().numpy()
+    t0 = time.perf_counter()
+    m_np = metrics.mean_ap(host, ids[q], ids[g], cams[q], cams[g])
+    c_np = metrics.cmc(host, ids[q], ids[g], cams[q], cams[g], topk=10,
+                       **ev.CMC_KWARGS)
+    numpy_s = time.perf_counter() - t0
+    if not np.array_equal(c_card, c_np) or abs(m_card - m_np) > MAP_ATOL:
+        raise AssertionError('{}: card CMC/mAP {} {} vs numpy {} {}'.format(
+            phase, c_card, m_card, c_np, m_np))
+    res = results[cfg.TEST.DATASETS[0]]['single']['mAP']
+    if abs(res - m_card) > MAP_ATOL:
+        raise AssertionError('{}: run_inference mAP {} vs {}'.format(
+            phase, res, m_card))
+    emit(phase, config=os.path.relpath(yaml_path, ROOT),
+         queries=int(q.sum()), gallery=int(g.sum()), sizes=pad_stats(roidb),
+         flip_tta=bool(cfg.TEST.BBOX_AUG.ENABLED and cfg.TEST.BBOX_AUG.H_FLIP),
+         batch_kinds=kinds, single_query=single[0], mAP=m_card,
+         cmc1=float(c_card[0]), extract_s=extract_s,
+         extract_imgs_per_s=n / extract_s, run_inference_s=seconds,
+         pkl_vs_memory_max_abs=feat_diff, pkl_vs_memory_images=len(sub),
+         subset_stream_imgs_per_s=len(sub) / mem_s,
+         subset_decode_only_imgs_per_s=len(sub) / decode_s,
+         subset_pad_one_thread_imgs_per_s=len(sub) / pad_s,
+         feat_atol=FEAT_ATOL, map_card=m_card, map_numpy=m_np,
+         map_diff=abs(m_card - m_np), cmc_equal=True,
+         numpy_metrics_s=numpy_s, log=log)
+    return feats, roidb
+
+
+def phase_serve_mixed(dev, train_rec, feats, roidb, decode):
+    """QueryEmbedder on 4-image groups of mixed sizes with the Duke final
+    state, then a search of the Duke gallery against a brute force."""
+    import torch
+    from pps_tpu_torch.config import (cfg, reset_cfg, merge_cfg_from_file,
+                                      assert_and_infer_cfg)
+    from pps_tpu_torch.engine.serving import QueryEmbedder, RetrievalIndex
+    from pps_tpu_torch.models.model import build_model
+    reset_cfg()
+    merge_cfg_from_file(DUKE['yaml'])
+    assert_and_infer_cfg()
+    model = build_model(cfg, device=dev)
+    qe = QueryEmbedder(cfg, model, train_rec.state['params'],
+                       train_rec.state['state'], max_batch=BATCH, device=dev)
+    qe.warmup()
+    marks = np.array([e['mark'] for e in roidb])
+    gal = np.flatnonzero(marks == 1)
+    index = RetrievalIndex(feats[gal], [roidb[i]['image'] for i in gal],
+                           int8=False, device=dev)
+    g = torch.as_tensor(feats[gal], device=dev)
+    queries = np.flatnonzero(marks == 0)
+    report, rng = [], np.random.RandomState(2)
+    for r in range(REPEATS + 1):  # the first request warms the sizes up
+        pick = rng.choice(queries, 4, replace=False)
+        paths = [roidb[i]['image'] for i in pick]
+        sizes = {decode(p).shape for p in paths}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = qe.embed(paths, decode)
+        t1 = time.perf_counter()
+        d, i = index.search(q, TOPK)
+        t2 = time.perf_counter()
+        norms = np.linalg.norm(q, axis=1)
+        if not np.allclose(norms, 1.0, atol=1e-3):
+            raise AssertionError('serve_mixed: norms {}'.format(norms))
+        _, bd2, _ = brute_force(torch.as_tensor(q, device=dev), g, TOPK)
+        diff = float(np.abs(d ** 2 - bd2.cpu().numpy()).max())
+        if diff > DIST2_ATOL:
+            raise AssertionError('serve_mixed: d^2 diff {}'.format(diff))
+        if r:
+            report.append({'sizes': len(sizes), 'embed_ms': (t1 - t0) * 1e3,
+                           'search_ms': (t2 - t1) * 1e3,
+                           'latency_ms': (t2 - t0) * 1e3,
+                           'max_dist2_diff': diff})
+    lat = [r['latency_ms'] for r in report]
+    emit('serve_mixed', gallery=int(len(gal)), group=4, k=TOPK,
+         requests=report, latency_ms_median=float(np.median(lat)),
+         embed_ms_median=float(np.median([r['embed_ms'] for r in report])),
+         u8_shape=list(qe._u8_shape), dist2_atol=DIST2_ATOL)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1100,6 +1645,9 @@ def main():
     phase_train_agree(dev, gallery)
     torch.cuda.empty_cache()
 
+    phase_remat(dev, gallery)
+    torch.cuda.empty_cache()
+
     # main path, part 4: the train -> test drivers
     out_root = os.path.join(ROOT, 'build', 'chip_smoke_run')
     shutil.rmtree(out_root, ignore_errors=True)
@@ -1114,8 +1662,41 @@ def main():
     ze.launches = 0
     phase_test_net(dev, out_root, cfg, final_pkl, decode, rec)
     launches['zero_even'] += ze.launches
-    del rec
+    del rec, gallery
     shutil.rmtree(out_root, ignore_errors=True)  # ~2.5 GB of checkpoints
+    torch.cuda.empty_cache()
+
+    # main path, part 5: the mixed-size datasets through the drivers
+    decoders = {}
+    for spec in (DUKE, CUHK03):
+        decoders[spec['name']] = MixedDecoder(size_table(spec),
+                                              seed=spec['seed'])
+        write_mixed(os.path.join(out_root, spec['name']), spec,
+                    decoders[spec['name']])
+    duke, cuhk = decoders['duke'], decoders['cuhk03']
+    phase_augment_agree(dev, duke)
+
+    def driven(fn, *args):
+        ze.launches = 0
+        out = fn(*args)
+        launches['zero_even'] += ze.launches
+        torch.cuda.empty_cache()
+        return out
+    duke_rec, duke_pkl = driven(phase_train_mixed, dev, out_root, DUKE, duke,
+                                DUKE_EPOCHS, 'train_duke')
+    driven(phase_host_chain, dev, out_root, duke)
+    # one epoch: the checkpoint for test_cuhk03; its loss is reported
+    cuhk_rec, cuhk_pkl = driven(phase_train_mixed, dev, out_root, CUHK03,
+                                cuhk, CUHK03_EPOCHS, 'train_cuhk03', False)
+    feats, roidb = driven(phase_test_mixed, dev, out_root, 'test_duke',
+                          DUKE['yaml'], duke_pkl, duke, duke_rec)
+    driven(phase_test_mixed, dev, out_root, 'test_duke_fliptta',
+           DUKE_FLIPTTA_YAML, duke_pkl, duke, duke_rec)
+    driven(phase_test_mixed, dev, out_root, 'test_cuhk03', CUHK03['yaml'],
+           cuhk_pkl, cuhk, cuhk_rec)
+    driven(phase_serve_mixed, dev, duke_rec, feats, roidb, duke)
+    del duke_rec, cuhk_rec
+    shutil.rmtree(out_root, ignore_errors=True)
 
     for k in kernels:
         k['launches'] = launches[k['name']]

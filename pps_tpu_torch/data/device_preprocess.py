@@ -10,8 +10,9 @@ with R built from cv2's INTER_CUBIC semantics: src = (dst + 0.5) * in/out
 (BORDER_REPLICATE).  Decode stays on the host (uint8); cast, mean
 subtraction and resize run on the device.  Nothing here needs cv2.
 
-The padded ``valid_hw`` form needs ``device_augment`` and waits for
-ROADMAP slice 3.
+``preprocess_on_device_padded`` is the mixed-size form: decodes padded to
+one dataset-global bucket, with per-sample resize matrices that cover each
+sample's valid window.
 """
 
 import functools
@@ -70,3 +71,20 @@ def preprocess_on_device(images_u8, pixel_means, out_hw):
                             device=images_u8.device)
     x = images_u8.float() - means
     return resize_bicubic(x, out_hw)
+
+
+def preprocess_on_device_padded(images_u8, valid_hw, pixel_means, out_hw):
+    """Mixed-size form: uint8 [B, H_pad, W_pad, 3] decodes padded
+    bottom/right to a dataset-global bucket + each sample's valid_hw
+    [B, 2] -> float32 [B, H', W', 3].  The per-sample resize matrices
+    (``device_augment``'s crop-resize with the valid region as the window)
+    never sample the pad, so this equals resizing each image from its
+    true size."""
+    from pps_tpu_torch.data.device_augment import crop_resize_batch
+    means = torch.as_tensor(np.asarray(pixel_means, np.float32).reshape(-1),
+                            device=images_u8.device)
+    x = images_u8.float() - means
+    valid_hw = valid_hw.int()
+    zeros = torch.zeros_like(valid_hw[:, 0])
+    return crop_resize_batch(x, valid_hw[:, 0], valid_hw[:, 1], zeros, zeros,
+                             tuple(out_hw))

@@ -13,9 +13,15 @@ copies overlap the steps; before a batch is handed over, the consumer's
 stream waits for the copies (``device.Transfer``, as in
 ``parallel/eval_step.py``).
 
-Only the uniform raw uint8 wire is ported: a dataset whose roidb lacks
-height/width metadata (the host chain) or mixes decode sizes (the padded
-``valid_hw`` wire) raises (ROADMAP slice 3b).
+The wire is decided once, from roidb metadata, never per batch:
+uniform sizes take the raw uint8 wire; mixed sizes the padded wire at the
+dataset-global bucket (each axis's maximum); a roidb without height/width
+metadata, or ``raw=False`` (``TPU.DEVICE_AUGMENT False``), the float32
+host chain, whose draws come from a ``RandomState`` keyed by (seed,
+epoch, step), never by worker, so a batch does not depend on thread
+scheduling.  ``wire_dtype='bfloat16'`` (``TPU.WIRE_DTYPE``) casts the
+host chain's 'data' to bfloat16 in the worker, before the copy; the uint8
+wires have nothing to cast.
 """
 
 import logging
@@ -23,6 +29,7 @@ import queue
 import threading
 
 import numpy as np
+import torch
 
 from pps_tpu_torch.data import minibatch as minibatch_lib
 from pps_tpu_torch.data.sampler import EpochSchedule, PermSampler, PKSampler
@@ -30,19 +37,17 @@ from pps_tpu_torch.device import Transfer
 
 logger = logging.getLogger(__name__)
 
-_TODO = ('{} is not ported yet (ROADMAP slice 3b: mixed-size datasets and '
-         'the host augmentation chain)')
-
 
 class ReIDLoader(object):
     def __init__(self, roidb, cfg, num_workers=None, prefetch=None,
                  seed=None, decode_fn=None, device=None, raw=True,
-                 device_prefetch=None):
+                 device_prefetch=None, wire_dtype='float32'):
         """num_workers / prefetch / device_prefetch default from
         DATA_LOADER: NUM_THREADS decode workers, MINIBATCH_QUEUE_SIZE host
         batches prepared ahead, BLOBS_QUEUE_CAPACITY device batches copied
-        ahead.  ``device`` None yields host numpy batches; a device yields
-        dicts of tensors there."""
+        ahead.  ``device`` None yields host batches; a device yields dicts
+        of tensors there.  ``raw``: the uint8 wires when the metadata
+        allows them (see the module docstring)."""
         self._roidb = roidb
         self._cfg = cfg
         if num_workers is None:
@@ -54,16 +59,27 @@ class ReIDLoader(object):
         self._device_prefetch = max(1, int(device_prefetch))
         self._decode_fn = decode_fn
         self._transfer = None if device is None else Transfer(device)
+        if wire_dtype not in ('float32', 'bfloat16'):
+            raise ValueError("wire_dtype must be 'float32' or 'bfloat16', "
+                             'not {!r}'.format(wire_dtype))
+        self._bf16_wire = wire_dtype == 'bfloat16'
         # the wire is decided ONCE from roidb metadata, never per batch
-        if not raw:
-            raise NotImplementedError(_TODO.format('The host chain'))
-        sizes = {(e.get('height'), e.get('width')) for e in roidb}
-        if any(None in s for s in sizes):
-            raise NotImplementedError(_TODO.format(
-                'A roidb without height/width metadata (the host chain)'))
-        if len(sizes) > 1:
-            raise NotImplementedError(_TODO.format(
-                'A mixed-size dataset (the padded valid_hw wire)'))
+        self._raw_pad_hw = None
+        if raw:
+            sizes = {(e.get('height'), e.get('width')) for e in roidb}
+            if not sizes or any(None in s for s in sizes):
+                if sizes:
+                    logger.warning(
+                        'roidb lacks height/width metadata; disabling the '
+                        'uint8 device-augment wire (host chain instead)')
+                    raw = False
+            elif len(sizes) > 1:
+                self._raw_pad_hw = (max(s[0] for s in sizes),
+                                    max(s[1] for s in sizes))
+        self._raw = raw
+        logger.info('loader wire: %s', 'host chain' if not raw else (
+            'raw uint8' if self._raw_pad_hw is None else
+            'padded uint8 at {}x{}'.format(*self._raw_pad_hw)))
         self._prefetch = max(1, int(prefetch))
         self._num_workers = max(1, int(num_workers))
         self._seed = cfg.RNG_SEED if seed is None else seed
@@ -111,10 +127,20 @@ class ReIDLoader(object):
                 continue
             slot, (i, mode, scale, idx) = item
             try:
+                # the host chain's draws keyed by (seed, epoch, step), not
+                # by worker: which worker takes a batch is a race
+                rng = np.random.RandomState(
+                    (self._seed * 1000003 + self._cur_ep * 10007 + i)
+                    % (2 ** 31))
                 entries = [self._roidb[j] for j in idx]
                 batch = minibatch_lib.get_minibatch(
                     entries, self._cfg, train=True,
-                    decode_fn=self._decode_fn)
+                    decode_fn=self._decode_fn, raw=self._raw,
+                    raw_pad_hw=self._raw_pad_hw, rng=rng)
+                if self._bf16_wire and 'data' in batch:
+                    # numpy has no bfloat16: torch casts on the host
+                    batch['data'] = torch.from_numpy(batch['data']).to(
+                        torch.bfloat16)
                 self._slots[slot] = (i, mode, scale, batch)
             except Exception as e:  # handed to the consumer, which raises
                 logger.exception('loader worker failed')
@@ -137,6 +163,7 @@ class ReIDLoader(object):
         if not plan:
             return
         dev_ready = {}  # slot -> device batch copied ahead
+        self._cur_ep = ep
         self._slots = [None] * len(plan)
         self._sem = threading.Semaphore(0)
         self._stop.clear()

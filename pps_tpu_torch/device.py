@@ -52,10 +52,11 @@ class Transfer(object):
                         if self.device.type == 'cuda' else None)
 
     def put(self, arrays):
-        """A dict of arrays (or one array) -> the same of device tensors,
-        their copies started."""
+        """A dict of arrays (or one array; numpy or CPU tensors) -> the
+        same of device tensors, their copies started."""
         one = not isinstance(arrays, dict)
-        host = {k: torch.from_numpy(np.ascontiguousarray(v))
+        host = {k: (v.contiguous() if torch.is_tensor(v)
+                    else torch.from_numpy(np.ascontiguousarray(v)))
                 for k, v in ({0: arrays} if one else arrays).items()}
         if self._stream is None:
             out = {k: v.to(self.device) for k, v in host.items()}

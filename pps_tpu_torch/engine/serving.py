@@ -10,9 +10,13 @@ Counterpart of the request path of ``pps_tpu/engine/serving.py``:
   with per-row scales) and answers exact top-k queries with one product
   over the whole gallery (``ops/topk.flat_topk``).
 
-Not in this slice: the host-preprocessing fallback for mixed-size groups,
-the batchers, IVF, sharding, re-ranking, remove, save and load, and the
-streaming scan above ``FLAT_SCAN_MAX_ELEMS`` (ROADMAP slice 5).
+A group of mixed decode sizes, or of another size than the one pinned,
+is preprocessed on the host (float32) and embedded by the same model on
+the device.
+
+Not in this slice: the batchers, IVF, sharding, re-ranking, remove, save
+and load, and the streaming scan above ``FLAT_SCAN_MAX_ELEMS`` (ROADMAP
+slice 5).
 """
 
 import threading
@@ -20,6 +24,7 @@ import threading
 import numpy as np
 import torch
 
+from pps_tpu_torch.data import transforms
 from pps_tpu_torch.device import resolve_device
 from pps_tpu_torch.ops.topk import flat_topk, gallery_norms, quantize_gallery
 from pps_tpu_torch.parallel import eval_step as es_lib
@@ -33,11 +38,13 @@ class QueryEmbedder:
     Each request's images are stacked and padded (repeating the last
     image) to the smallest ladder size that holds them; requests larger
     than the cap go through the top size in chunks.  ``warmup`` runs every
-    ladder size once before traffic.  Any uniform raw size rides the uint8
-    wire: eager PyTorch compiles nothing per shape, so the JAX package's
-    one-pinned-raw-shape rule has no counterpart.  Feature semantics match
-    the gallery path: the same device preprocessing and the same flip-TTA
-    flag (TEST.BBOX_AUG.ENABLED and H_FLIP).
+    ladder size of both wires once before traffic.  One raw size rides the
+    uint8 wire per lifetime, the first one seen (or the one warmed), as in
+    the JAX package, where each raw shape compiles a graph; any other
+    group, and a group of mixed sizes, is preprocessed on the host and
+    rides the float32 wire.  Feature semantics match the gallery path: the
+    same preprocessing and the same flip-TTA flag (TEST.BBOX_AUG.ENABLED
+    and H_FLIP).
     """
 
     def __init__(self, cfg, model, params, state, max_batch=64, device=None):
@@ -51,6 +58,8 @@ class QueryEmbedder:
         self._fn_u8 = es_lib.make_extract_fn(
             model, flip_tta=flip, device_preproc=(self._means, self._out_hw),
             device=self.device)
+        self._fn_f32 = es_lib.make_extract_fn(model, flip_tta=flip,
+                                              device=self.device)
         sizes, s = [], 1
         cap = max(1, int(max_batch))
         while s < cap:
@@ -58,6 +67,7 @@ class QueryEmbedder:
             s *= 4
         sizes.append(cap)
         self.ladder = tuple(sizes)
+        self._u8_shape = None  # the raw shape of the uint8 wire, once seen
         self._dim = None  # embedding width, learned at first dispatch
 
     def _ladder_pad(self, n):
@@ -67,21 +77,25 @@ class QueryEmbedder:
         return self.ladder[-1]
 
     def warmup(self, raw_hw=None):
-        """Run every ladder size once on zero images of raw size
-        ``raw_hw`` (default: the network input size), so first requests
-        do not pay for allocator growth and cuDNN set-up."""
+        """Run every ladder size of both wires once, on zero images, so
+        first requests do not pay for allocator growth and cuDNN set-up;
+        pin the uint8 wire to raw size ``raw_hw`` (default: the network
+        input size)."""
         h, w = raw_hw if raw_hw is not None else self._out_hw
         img8 = np.zeros((1, h, w, 3), np.uint8)
+        img32 = np.zeros((1,) + self._out_hw + (3,), np.float32)
         for s in self.ladder:
-            self._dispatch(np.repeat(img8, s, axis=0), s)
+            self._dispatch(self._fn_u8, np.repeat(img8, s, axis=0), s)
+            self._dispatch(self._fn_f32, np.repeat(img32, s, axis=0), s)
+        self._u8_shape = (h, w, 3)
 
-    def _dispatch(self, stack, padded):
+    def _dispatch(self, fn, stack, padded):
         n = stack.shape[0]
         if padded > n:
             stack = np.concatenate(
                 [stack, np.repeat(stack[-1:], padded - n, axis=0)], axis=0)
         x = torch.from_numpy(np.ascontiguousarray(stack)).to(self.device)
-        feats = self._fn_u8(self._params, self._state, x)
+        feats = fn(self._params, self._state, x)
         feats = feats.cpu().numpy().astype(np.float32, copy=False)
         self._dim = feats.shape[1]
         return feats[:n]
@@ -99,10 +113,17 @@ class QueryEmbedder:
              for s in range(0, len(ims), cap)], axis=0)
 
     def _embed_ims(self, ims):
-        if any(im.shape != ims[0].shape for im in ims):
-            raise NotImplementedError(_SERVING_TODO.format(
-                'host preprocessing for mixed-size groups'))
-        return self._dispatch(np.stack(ims), self._ladder_pad(len(ims)))
+        padded = self._ladder_pad(len(ims))
+        if all(im.shape == ims[0].shape for im in ims):
+            if self._u8_shape is None:
+                self._u8_shape = ims[0].shape
+            if ims[0].shape == self._u8_shape:
+                return self._dispatch(self._fn_u8, np.stack(ims), padded)
+        h, w = self._out_hw
+        out = np.empty((len(ims), h, w, 3), np.float32)
+        for i, im in enumerate(ims):
+            out[i] = transforms.prep_im_for_blob(im, self._means, (w, h))
+        return self._dispatch(self._fn_f32, out, padded)
 
 
 class RetrievalIndex:

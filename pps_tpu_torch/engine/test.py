@@ -7,13 +7,19 @@ padded to the batch size (its pad rows dropped), and ``features.pkl``
 keeps the reference container ``{'all_feats': [N, E], 'cfg': yaml}``, so
 the JAX package's evaluation tools read it.
 
-Not ported: mixed decode sizes (the padded wire) and the float32 host
-preprocessing fallback (ROADMAP slice 3b), int8 extraction
-(``TPU.INT8_EVAL``, slice 6), orbax weights (slice 8), re-ranking and the
-rank-list visualisation (``REID.RERANK``, ``REID.VIS``, slice 5).  Each
-raises.
+Mixed decode sizes with height/width metadata (Duke, CUHK03) ride the
+padded uint8 wire: decodes padded to one dataset-global bucket plus each
+sample's ``valid_hw``.  Batches outside the uint8 contracts, and
+``TPU.DEVICE_PREPROC False``, take the float32 host preprocessing
+(``transforms.prep_im_for_blob``).
+
+Not ported: int8 extraction (``TPU.INT8_EVAL``, ROADMAP slice 6), orbax
+weights (slice 8), re-ranking and the rank-list visualisation
+(``REID.RERANK``, ``REID.VIS``, slice 5).  Each raises.
 """
 
+import collections
+import json
 import logging
 import os
 from collections import deque
@@ -24,6 +30,7 @@ import torch
 
 from pps_tpu_torch.data import transforms
 from pps_tpu_torch.data.json_dataset import roidb_for_test
+from pps_tpu_torch.data.minibatch import fits_bucket, pad_to_bucket
 from pps_tpu_torch.device import Transfer, resolve_device
 from pps_tpu_torch.engine import checkpoint as ckpt_lib
 from pps_tpu_torch.evaluation import evaluator as eval_lib
@@ -34,9 +41,6 @@ from pps_tpu_torch.utils.timer import Timer
 
 logger = logging.getLogger(__name__)
 
-_MIXED_TODO = ('{} is not ported yet (ROADMAP slice 3b: mixed-size '
-               'datasets and the host augmentation chain)')
-
 
 def _default_workers(num_workers):
     """None -> scale with the host (capped at 8); explicit ints honoured."""
@@ -45,30 +49,47 @@ def _default_workers(num_workers):
     return num_workers
 
 
-def _check_uniform(roidb, device_preproc):
-    if not device_preproc:
-        raise NotImplementedError(_MIXED_TODO.format(
-            'The float32 host preprocessing path (TPU.DEVICE_PREPROC False)'))
+def _pad_bucket(roidb):
+    """The dataset-global (H_pad, W_pad) of a mixed-size roidb with
+    height/width metadata, else None."""
     sizes = {(e.get('height'), e.get('width')) for e in roidb}
     if len(sizes) > 1 and all(None not in s for s in sizes):
-        raise NotImplementedError(_MIXED_TODO.format(
-            'A test set of mixed image sizes'))
+        return (max(s[0] for s in sizes), max(s[1] for s in sizes))
+    return None
 
 
-def _stack_uniform(ims):
-    if any(im.shape != ims[0].shape for im in ims):
-        raise NotImplementedError(_MIXED_TODO.format(
-            'Decodes of mixed sizes ({})'.format(
-                sorted({im.shape for im in ims}))))
-    return np.stack(ims)
+def preprocess_images(roidb, cfg, decode_fn=None, num_workers=None):
+    """Decode and preprocess the whole set on the host to a float32
+    [N, H, W, 3] stack (threads: cv2's decode and resize release the
+    interpreter lock)."""
+    num_workers = _default_workers(num_workers)
+    decode_fn = decode_fn or transforms.decode_image
+    w, h = cfg.REID.SCALE
+    pixel_means = np.asarray(cfg.PIXEL_MEANS)
+    out = np.empty((len(roidb), h, w, 3), np.float32)
+
+    def work(i):
+        im = decode_fn(roidb[i]['image'])
+        out[i] = transforms.prep_im_for_blob(im, pixel_means, (w, h))
+
+    if num_workers > 1 and len(roidb) > 16:
+        with ThreadPoolExecutor(num_workers) as pool:
+            list(pool.map(work, range(len(roidb))))
+    else:
+        for i in range(len(roidb)):
+            work(i)
+    return out
 
 
 def decode_uint8_stack(roidb, decode_fn=None, num_workers=None):
-    """Decode the whole set to one uint8 stack [N, h, w, 3]."""
+    """Decode the whole set to one uint8 stack [N, h, w, 3], or None when
+    the decodes differ in size."""
     decode_fn = decode_fn or transforms.decode_image
     with ThreadPoolExecutor(max(1, _default_workers(num_workers))) as pool:
         ims = list(pool.map(lambda e: decode_fn(e['image']), roidb))
-    return _stack_uniform(ims)
+    if not ims or any(im.shape != ims[0].shape for im in ims):
+        return None
+    return np.stack(ims)
 
 
 def stream_extract(cfg, model, params, state, roidb, batch_size,
@@ -76,29 +97,60 @@ def stream_extract(cfg, model, params, state, roidb, batch_size,
                    num_workers=None, prefetch=3):
     """Streaming extraction in O(prefetch x batch) host memory: threads
     decode whole batches ahead (cv2 releases the GIL), each batch goes to
-    the device as uint8 on a side stream while the previous one computes,
-    and the cast, mean subtraction and cv2-exact bicubic resize run on the
-    device (``make_extract_fn(device_preproc=...)``).  Returns [N, E]
-    float32 numpy."""
-    _check_uniform(roidb, device_preproc)
+    the device on a side stream while the previous one computes.  Returns
+    [N, E] float32 numpy.
+
+    Each batch takes one of three kinds:
+
+    * 'u8p': a mixed-size roidb with height/width metadata; decodes
+      padded to the dataset-global bucket plus valid_hw, preprocessed on
+      the device (``make_extract_fn(padded_wire=True)``);
+    * 'u8': every decode of the batch has the shape of the run's first
+      uint8 batch, preprocessed on the device;
+    * 'f32': anything else (or ``device_preproc`` off), preprocessed on
+      the host.
+
+    The run keeps one uint8 shape (the JAX package's rule, where each
+    shape compiles a graph), so a metadata-less mixed set does not mix
+    wires at random.  The count of each kind is logged at the end.
+    """
     decode_fn = decode_fn or transforms.decode_image
     w, h = cfg.REID.SCALE
-    extract = eval_step_lib.make_extract_fn(
-        model, flip_tta=flip_tta,
-        device_preproc=(np.asarray(cfg.PIXEL_MEANS), (h, w)),
-        device=model.device)
+    pixel_means = np.asarray(cfg.PIXEL_MEANS)
+    pre = (pixel_means, (h, w))
+    fns = {'f32': eval_step_lib.make_extract_fn(
+        model, flip_tta=flip_tta, device=model.device)}
+    if device_preproc:
+        fns['u8'] = eval_step_lib.make_extract_fn(
+            model, flip_tta=flip_tta, device_preproc=pre,
+            device=model.device)
+        fns['u8p'] = eval_step_lib.make_extract_fn(
+            model, flip_tta=flip_tta, device_preproc=pre,
+            device=model.device, padded_wire=True)
+    pad_hw = _pad_bucket(roidb) if device_preproc else None
     transfer = Transfer(model.device)
+    u8_shape = []  # the first uniform raw shape pins the uint8 wire
 
     def prep(start):
-        entries = roidb[start:start + batch_size]
-        ims = _stack_uniform([decode_fn(e['image']) for e in entries])
-        pad = batch_size - ims.shape[0]
-        if pad:
-            ims = np.concatenate([ims, np.repeat(ims[-1:], pad, axis=0)],
-                                 axis=0)
-        return ims, pad
+        ims = [decode_fn(e['image']) for e in roidb[start:start + batch_size]]
+        pad = batch_size - len(ims)
+        if pad_hw is not None and fits_bucket(ims, pad_hw):
+            padded, valid = pad_to_bucket(ims, pad_hw)
+            return 'u8p', (_tail_pad(padded, pad), _tail_pad(valid, pad)), pad
+        if device_preproc and all(im.shape == ims[0].shape for im in ims):
+            # list append is atomic under the GIL; a racing second shape
+            # only sends that batch to the host path
+            if not u8_shape:
+                u8_shape.append(ims[0].shape)
+            if ims[0].shape == u8_shape[0]:
+                return 'u8', (_tail_pad(np.stack(ims), pad),), pad
+        out = np.empty((len(ims), h, w, 3), np.float32)
+        for i, im in enumerate(ims):
+            out[i] = transforms.prep_im_for_blob(im, pixel_means, (w, h))
+        return 'f32', (_tail_pad(out, pad),), pad
 
     starts = list(range(0, len(roidb), batch_size))
+    kinds = collections.Counter()
     out, futs = [], deque()
     pending = None  # (features tensor, pad)
     with ThreadPoolExecutor(max(1, _default_workers(num_workers))) as pool:
@@ -107,11 +159,14 @@ def stream_extract(cfg, model, params, state, roidb, batch_size,
             futs.append(pool.submit(prep, starts[issued]))
             issued += 1
         for _ in starts:
-            ims, pad = futs.popleft().result()
+            kind, arrays, pad = futs.popleft().result()
             if issued < len(starts):
                 futs.append(pool.submit(prep, starts[issued]))
                 issued += 1
-            feats = extract(params, state, transfer.ready(transfer.put(ims)))
+            kinds[kind] += 1
+            dev = transfer.ready(transfer.put(dict(enumerate(arrays))))
+            feats = fns[kind](params, state, *[dev[i] for i in
+                                               range(len(arrays))])
             if pending is not None:
                 pf, ppad = pending
                 out.append(pf.cpu().numpy()[:batch_size - ppad])
@@ -119,8 +174,17 @@ def stream_extract(cfg, model, params, state, roidb, batch_size,
     if pending is not None:
         pf, ppad = pending
         out.append(pf.cpu().numpy()[:batch_size - ppad])
+    logger.info('stream_extract batch kinds: %s',
+                json.dumps({k: kinds[k] for k in ('u8p', 'u8', 'f32')}))
     return (np.concatenate(out, axis=0) if out
             else np.zeros((0, model.embedding_dim), np.float32))
+
+
+def _tail_pad(a, pad):
+    """Pad the batch dimension by repeating the last row ``pad`` times."""
+    if not pad:
+        return a
+    return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)], axis=0)
 
 
 def default_eval_batch(cfg, n_dev=1, batch_size=None):
@@ -156,12 +220,20 @@ def extract_dataset_features(cfg, model, params, state, roidb,
                     '(%.1f imgs/s)', len(roidb), t_total,
                     len(roidb) / max(t_total, 1e-9))
         return feats
-    _check_uniform(roidb, device_preproc)
-    images = decode_uint8_stack(roidb, decode_fn=decode_fn)
-    w, h = cfg.REID.SCALE
+    images, preproc = None, None
+    if device_preproc:
+        # a mixed-size set is known from its metadata, before decoding
+        if _pad_bucket(roidb) is None:
+            images = decode_uint8_stack(roidb, decode_fn=decode_fn)
+        if images is not None:
+            w, h = cfg.REID.SCALE
+            preproc = (np.asarray(cfg.PIXEL_MEANS), (h, w))
+        else:
+            logger.info('mixed image sizes; host preprocessing path')
+    if images is None:
+        images = preprocess_images(roidb, cfg, decode_fn=decode_fn)
     extract = eval_step_lib.make_extract_fn(
-        model, flip_tta=flip_tta,
-        device_preproc=(np.asarray(cfg.PIXEL_MEANS), (h, w)),
+        model, flip_tta=flip_tta, device_preproc=preproc,
         device=model.device)
     t_prep = timer.toc(average=False)
     timer.tic()

@@ -194,9 +194,13 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
     trainable = opt_lib.trainable_from_cfg(cfg, params)
     step_fn = ts_lib.make_train_step(model, cfg, meta, trainable=trainable,
                                      device=device)
+    # TPU.DEVICE_AUGMENT False: the host chain; TPU.WIRE_DTYPE bfloat16
+    # casts its float32 'data' before the copy (the uint8 wires have
+    # nothing to cast)
     loader = ReIDLoader(roidb, cfg, num_workers=num_workers,
                         decode_fn=decode_fn, device=device,
-                        raw=bool(cfg.TPU.DEVICE_AUGMENT))
+                        raw=bool(cfg.TPU.DEVICE_AUGMENT),
+                        wire_dtype=cfg.TPU.WIRE_DTYPE)
     if start_epoch > 0:
         loader.skip_epochs(start_epoch)  # the samplers as a continuous run
     sched = loader.schedule

@@ -7,11 +7,19 @@ keyed by the reference blob names, so the checkpoint mapping stays a name
 map (``engine/checkpoint.py``).  The public layouts are the JAX package's:
 images NHWC ``[B, H, W, 3]``, embeddings ``[B, R*D]``.
 
-Not ported: the FPN body (ROADMAP slice 6: the variants) and
-``TPU.REMAT`` (slice 3).
+``TPU.REMAT`` recomputes the conv body in the backward pass instead of
+keeping its activations (``torch.utils.checkpoint``, non-reentrant, as
+``jax.checkpoint`` in the JAX package): the running-stat updates come from
+the first forward pass, and the recomputation writes nothing that
+survives.  The body draws no random numbers (dropout is in the head,
+outside the checkpoint), so losses, gradients and updates equal those
+without it bit for bit on the CPU.
+
+Not ported: the FPN body (ROADMAP slice 6: the variants).
 """
 
 import torch
+import torch.utils.checkpoint
 
 from pps_tpu_torch.device import resolve_device
 from pps_tpu_torch.models import heads as head_lib
@@ -98,12 +106,16 @@ class ReIDModel:
                 params, state, combo_feats, self.head_spec,
                 param_prefix=self.head_param_prefix)
             return features, logits, {}
+        def body(p, s, im):
+            return resnet_lib.apply_resnet(p, s, im, self.resnet_spec,
+                                           train=True)
         if self.cfg.TPU.REMAT:
-            raise NotImplementedError(
-                'TPU.REMAT (activation recomputation) is not ported yet '
-                '(ROADMAP slice 3: the train loop)')
-        feat, updates = resnet_lib.apply_resnet(params, state, x,
-                                                self.resnet_spec, train=True)
+            # the body's RNG is not saved: it draws nothing
+            feat, updates = torch.utils.checkpoint.checkpoint(
+                body, params, state, x, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            feat, updates = body(params, state, x)
         if self.freeze_conv_body:
             feat = feat.detach()
         combo_feats = self._combo_feats(feat, self.head_spec['splits'])

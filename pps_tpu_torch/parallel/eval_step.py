@@ -10,28 +10,40 @@ slice 8.
 import numpy as np
 import torch
 
-from pps_tpu_torch.data.device_preprocess import preprocess_on_device
+from pps_tpu_torch.data.device_preprocess import (
+    preprocess_on_device, preprocess_on_device_padded)
 from pps_tpu_torch.device import Transfer, resolve_device
 
 
-def make_extract_fn(model, flip_tta=False, device_preproc=None, device=None):
+def make_extract_fn(model, flip_tta=False, device_preproc=None, device=None,
+                    padded_wire=False):
     """(params, state, images[B,H,W,3] tensor) -> [B, E] float32 tensor.
 
     flip_tta: average the embeddings of the image and its horizontal flip,
-      then L2-renormalise (the TEST.BBOX_AUG.H_FLIP analog).
+      then L2-renormalise (the TEST.BBOX_AUG.H_FLIP analog); the flip is
+      of the preprocessed images.
     device_preproc: optional (pixel_means, out_hw); the images are then raw
       uint8 decodes and the cast, mean subtraction and cv2-exact bicubic
       resize run on the device.
+    padded_wire: the mixed-size form of device_preproc; the fn takes a
+      fourth argument valid_hw [B, 2], and the decodes are padded to one
+      bucket (``preprocess_on_device_padded``).
     device: must be the model's device (default CUDA).
     """
     device = resolve_device(device)
     if device != model.device:
         raise ValueError('extract fn on {} for a model on {}'.format(
             device, model.device))
+    if padded_wire and device_preproc is None:
+        raise ValueError('padded_wire needs device_preproc')
 
     @torch.no_grad()
-    def extract(params, state, images):
-        if device_preproc is not None:
+    def extract(params, state, images, valid_hw=None):
+        if padded_wire:
+            means, out_hw = device_preproc
+            images = preprocess_on_device_padded(images, valid_hw, means,
+                                                 out_hw)
+        elif device_preproc is not None:
             means, out_hw = device_preproc
             images = preprocess_on_device(images, means, out_hw)
         feats = model.extract_features(params, state, images)

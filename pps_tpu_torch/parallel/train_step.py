@@ -1,9 +1,11 @@
 """The training step on one device (counterpart of
 ``pps_tpu/parallel/train_step.py`` without the mesh).
 
-One step = augmentation on the uint8 wire -> forward -> losses ->
-backward -> momentum-SGD, as one call that reads nothing back to the
-host, so consecutive steps queue on the card without a sync.  Scalars
+One step = augmentation on the uint8 wire (raw or padded) -> forward ->
+losses -> backward -> momentum-SGD, as one call that reads nothing back
+to the host, so consecutive steps queue on the card without a sync.  A
+batch of the host chain ('data', float32 or bfloat16) goes straight to
+the model.  Scalars
 that change between steps (``lr``, ``loss_scale_factor``) are arguments.
 Multi-GPU (synchronised BN stats, gradient all-reduce) is ROADMAP slice 8.
 """
@@ -23,9 +25,10 @@ def make_train_step(model, cfg, meta, trainable=None, device=None):
     draws=None) -> (train_state, logs), where
       train_state = {'params', 'state', 'opt'} (dicts of tensors; the
         step returns new dicts and leaves its inputs as they were);
-      batch = {'data_u8' [B, H, W, 3] uint8, 'flipped' [B] bool} or
-        {'data' [B, H', W', 3] float32}, plus 'labels_int32' [B] and
-        'labels_oh' [B, K], all on the device;
+      batch = {'data_u8' [B, H, W, 3] uint8, 'flipped' [B] bool, and on
+        the padded wire 'valid_hw' [B, 2]} or {'data' [B, H', W', 3]
+        float32 or bfloat16}, plus 'labels_int32' [B] and 'labels_oh'
+        [B, K], all on the device;
       generator: a ``torch.Generator`` on the device; it draws the
         augmentation params and the dropout mask;
       draws: optional {'augment': params of
@@ -50,7 +53,8 @@ def make_train_step(model, cfg, meta, trainable=None, device=None):
         if 'data_u8' in batch:
             data = aug_lib.augment_batch(
                 generator, batch['data_u8'], batch['flipped'], aug_spec,
-                pixel_means, params=draws.get('augment'))
+                pixel_means, params=draws.get('augment'),
+                valid_hw=batch.get('valid_hw'))
         else:
             data = batch['data']
         names = [k for k in params

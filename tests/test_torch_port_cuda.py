@@ -321,3 +321,80 @@ def test_train_model_on_card_snapshot_equals_final(cuda, tmp_path):
             np.testing.assert_array_equal(snap[k], final[k], err_msg=k)
     finally:
         shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+def test_padded_augment_card_matches_cpu(cuda):
+    """The padded wire with every op on (crops, HSV, blur, erasing) and
+    flips, the same draws on both sides: the uint8 stage bitwise, the
+    float32 output within 1e-4 (the resize products sum in another order;
+    see tests/test_torch_port_augment.py)."""
+    from pps_tpu_torch.data import device_augment as aug
+    sizes = [(48, 20), (47, 19), (46, 18), (40, 16), (48, 17), (44, 20),
+             (36, 14), (47, 20)]
+    rng = np.random.RandomState(3)
+    padded = np.stack([np.pad(rng.randint(0, 256, s + (3,)).astype(np.uint8),
+                              ((0, 48 - s[0]), (0, 20 - s[1]), (0, 0)),
+                              mode='reflect') for s in sizes])
+    valid = torch.tensor(sizes, dtype=torch.int32)
+    flipped = torch.tensor(np.arange(8) % 2 == 1)
+    spec = dict(crop_prob=0.7, crop_ratio=0.7, hcrop_prob=0.5,
+                hcrop_ratio=0.8, hsv_prob=1.0, sat_range=30, hue_range=20,
+                val_range=30, blur_prob=1.0, blur_kernel=7, erase_prob=0.8,
+                sl=0.02, sh=0.4, r1=0.3, out_hw=(96, 32))
+    means = np.array([[[102.9801, 115.9465, 122.7717]]])
+    params = aug.sample_params(torch.Generator().manual_seed(1), spec, 8,
+                               (valid[:, 0], valid[:, 1]),
+                               torch.device('cpu'))
+    out, stages = [], []
+    real = aug.crop_resize_batch
+
+    def record(xf, *a):
+        stages.append(xf.cpu())
+        return real(xf, *a)
+    aug.crop_resize_batch = record
+    try:
+        for dev in ('cpu', cuda):
+            out.append(aug.apply_augment(
+                torch.tensor(padded).to(dev), flipped.to(dev),
+                {k: v.to(dev) for k, v in params.items()}, spec, means,
+                valid_hw=valid.to(dev)).cpu())
+    finally:
+        aug.crop_resize_batch = real
+    assert torch.equal(stages[0], stages[1])
+    assert float((out[0] - out[1]).abs().max()) <= 1e-4
+
+
+def test_remat_train_forward_card(cuda):
+    """TPU.REMAT on the card: the loss and the BN updates equal those
+    without it, and the gradients agree to float32 rounding (the
+    recomputed convolutions may pick other cuDNN algorithms)."""
+    cfg = flagship_cfg(scale=(32, 96), num_classes=11, ims_per_batch=8, p=4,
+                       k=2, dtype='float32')
+    model = build_model(cfg, device=cuda)
+    params, state = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(2)
+    labels = torch.tensor(np.repeat(np.arange(4), 2) * 2 + 1, device=cuda)
+    batch = {'data': torch.tensor(rng.randn(8, 96, 32, 3).astype(np.float32)
+                                  * 50, device=cuda),
+             'labels_int32': labels.int(),
+             'labels_oh': torch.nn.functional.one_hot(labels, 10).float()}
+    mask = torch.rand(8, 31, 128, generator=torch.Generator().manual_seed(3)
+                      ) < 0.8
+    out = {}
+    for remat in (False, True):
+        cfg.immutable(False)
+        cfg.TPU.REMAT = remat
+        cfg.immutable(True)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        with torch.enable_grad():
+            total, (updates, _) = model.train_forward(
+                leaves, state, batch, None, 1.0, dropout_mask=mask.to(cuda))
+            grads = torch.autograd.grad(total, list(leaves.values()))
+        out[remat] = (total.detach(), updates, grads)
+    (t0, u0, g0), (t1, u1, g1) = out[False], out[True]
+    assert torch.equal(t0, t1)
+    for k in u0:
+        assert torch.equal(u0[k], u1[k]), k
+    for a, b in zip(g0, g1):
+        assert _rms(a - b) <= 1e-4 * _rms(a) + 1e-12

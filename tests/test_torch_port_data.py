@@ -214,19 +214,27 @@ def test_raw_minibatch_bitwise(toy):
 
 
 def test_minibatch_unported_wires_raise(toy):
-    _, tr = toy
-    _, tc = both_cfgs(LOADER_OPTS)
+    """The wires that raised before slice 3b now give pps_tpu's batches:
+    the padded wire, the host chain, and a mixed batch on the raw wire
+    (which falls back to the host chain)."""
+    jr, tr = toy
+    jc, tc = both_cfgs(LOADER_OPTS)
     dec = decoder((48, 20))
-    with pytest.raises(NotImplementedError, match='slice 3b'):
-        tminibatch.get_minibatch(tr[:2], tc, decode_fn=dec,
-                                 raw_pad_hw=(64, 32))
-    with pytest.raises(NotImplementedError, match='slice 3b'):
-        tminibatch.get_minibatch(tr[:2], tc, decode_fn=dec, raw=False)
 
     def mixed(path):
         return dec(path)[:(40 if path.endswith('1.jpg') else 48)]
-    with pytest.raises(NotImplementedError, match='mixed decode sizes'):
-        tminibatch.get_minibatch(tr[:2], tc, decode_fn=mixed)
+    for kw in (dict(raw_pad_hw=(64, 32)), dict(raw=False),
+               dict(decode_fn=mixed)):
+        want = jminibatch.get_minibatch(
+            jr[:2], jc, np.random.RandomState(0), train=True,
+            decode_fn=kw.get('decode_fn', dec), raw=kw.get('raw', True),
+            raw_pad_hw=kw.get('raw_pad_hw'))
+        got = tminibatch.get_minibatch(
+            tr[:2], tc, rng=np.random.RandomState(0),
+            **dict(dict(decode_fn=dec), **kw))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def _loader_batches(loader, ep, start=0):
@@ -308,14 +316,13 @@ def test_loader_knobs_and_unported_wires(toy):
                                      'DATA_LOADER.BLOBS_QUEUE_CAPACITY', '2'])
     t = tloader.ReIDLoader(tr, tc)
     assert (t._num_workers, t._prefetch, t._device_prefetch) == (3, 5, 2)
+    # the wires that raised before slice 3b, decided from the metadata
     mixed = [dict(e, height=40) if i % 2 else e for i, e in enumerate(tr)]
-    with pytest.raises(NotImplementedError, match='padded valid_hw'):
-        tloader.ReIDLoader(mixed, tc)
+    assert tloader.ReIDLoader(mixed, tc)._raw_pad_hw == (48, 20)
     bare = [dict(e, height=None) for e in tr]
-    with pytest.raises(NotImplementedError, match='host chain'):
-        tloader.ReIDLoader(bare, tc)
-    with pytest.raises(NotImplementedError, match='slice 3b'):
-        tloader.ReIDLoader(tr, tc, raw=False)
+    assert not tloader.ReIDLoader(bare, tc)._raw
+    assert not tloader.ReIDLoader(tr, tc, raw=False)._raw
+    assert t._raw and t._raw_pad_hw is None
 
 
 def test_loader_worker_failure_and_pk_check(toy):

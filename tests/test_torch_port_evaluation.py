@@ -312,14 +312,15 @@ def test_engine_refuses_unported_paths(tmp_path):
     _, tc = both_cfgs(TINY + ['TPU.INT8_EVAL', 'True'])
     with pytest.raises(NotImplementedError, match='slice 6'):
         ttest_engine.test_net(tc, None, 'port_eval_test', device='cpu')
+    # mixed sizes and host preprocessing are ported (slice 3b): the
+    # padded bucket comes from the metadata, and no decode is refused
     _, tc = both_cfgs(TINY)
-    model = tbuild(tc, device='cpu')
     roidb = [{'image': 'a', 'height': 48, 'width': 20},
              {'image': 'b', 'height': 40, 'width': 20}]
-    with pytest.raises(NotImplementedError, match='slice 3b'):
-        ttest_engine.extract_dataset_features(tc, model, {}, {}, roidb)
-    with pytest.raises(NotImplementedError, match='host preprocessing'):
-        ttest_engine.extract_dataset_features(tc, model, {}, {}, roidb[:1],
-                                              device_preproc=False)
+    assert ttest_engine._pad_bucket(roidb) == (48, 20)
+    assert ttest_engine._pad_bucket(roidb[:1]) is None
+    assert ttest_engine.decode_uint8_stack(
+        roidb, decode_fn=lambda p: np.zeros(
+            (48 if p == 'a' else 40, 20, 3), np.uint8)) is None
     assert ttest_engine.default_eval_batch(tc) == 8
     assert ttest_engine.default_eval_batch(tc, 3, 16) == 15

@@ -267,11 +267,18 @@ def test_query_embedder_matches(embedders):
 
 
 def test_query_embedder_ladder_and_mixed_sizes(embedders):
-    _, tq, _, decodes, _ = embedders
+    """A mixed-size group is embedded through host preprocessing (slice
+    3b), as pps_tpu's embedder does it."""
+    jq, tq, mesh, decodes, _ = embedders
     assert [tq._ladder_pad(n) for n in (1, 2, 4, 9)] == [1, 4, 4, 4]
     small = decodes[0, :40]
-    with pytest.raises(NotImplementedError, match='mixed-size'):
-        tq.embed([0, 1], lambda p: decodes[0] if p == 0 else small)
+
+    def dec(p):
+        return decodes[0] if p == 0 else small
+    with mesh:
+        want = jq.embed([0, 1], decode_fn=dec)
+    got = tq.embed([0, 1], dec)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize('max_batch,ladder', [

@@ -422,16 +422,75 @@ def test_frozen_params_pass_through_the_step(setup, two_steps):
                            p['res3_0_branch2a_w'])
 
 
-def test_remat_is_not_ported(setup):
-    cfg, model, p, s = _port(setup)
+def _set_remat(cfg, on=True):
     cfg.immutable(False)
-    cfg.TPU.REMAT = True
+    cfg.TPU.REMAT = on
     cfg.immutable(True)
-    batch = {'data': torch.zeros(B, SCALE[1], SCALE[0], 3),
-             'labels_int32': torch.tensor(setup['labels']),
-             'labels_oh': torch.tensor(setup['oh'])}
-    with pytest.raises(NotImplementedError, match='slice 3'):
-        model.train_forward(p, s, batch, torch.Generator(), 1.0)
+
+
+def test_remat_is_not_ported(setup, forward):
+    """TPU.REMAT is ported: the body is recomputed in backward, and the
+    loss, every log, every gradient and the BN updates equal those without
+    it bit for bit (the body draws nothing; the updates come from the
+    first pass)."""
+    out = {}
+    for remat in (False, True):
+        cfg, model, p, s = _port(setup)
+        _set_remat(cfg, remat)
+        leaves = {k: v.requires_grad_(True) for k, v in p.items()}
+        batch = {k: torch.tensor(v) for k, v in forward['batch'].items()}
+        total, (updates, logs) = model.train_forward(
+            leaves, s, batch, None, 1.0,
+            dropout_mask=torch.tensor(forward['mask']))
+        names = sorted(leaves)
+        grads = torch.autograd.grad(total, [leaves[k] for k in names])
+        out[remat] = (total.detach(), updates, logs, dict(zip(names, grads)))
+    (t0, u0, l0, g0), (t1, u1, l1, g1) = out[False], out[True]
+    assert torch.equal(t0, t1)
+    for a, b in ((u0, u1), (l0, l1), (g0, g1)):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert torch.equal(a[k].detach(), b[k].detach()), k
+    assert len(u1) == len(setup['state'])  # every BN, the head's too
+
+
+def test_remat_train_step_matches_pps_tpu(setup, two_steps):
+    """One uint8-wire step with TPU.REMAT on both sides (pps_tpu's
+    jax.checkpoint op by op, the port's torch checkpoint), the first of
+    two_steps' draws: the tolerances of test_two_train_steps_match."""
+    cfg, jm = _jax_model()
+    _set_remat(cfg)
+    meta = jopt.make_param_meta(setup['params'], cfg)
+    raw = jts.make_train_step(jm, cfg, None, meta=meta).raw_step
+    ts = {'params': setup['params'], 'state': setup['state'],
+          'opt': jopt.init_opt_state(setup['params'])}
+    jts_, jlogs = raw(ts, {k: jnp.asarray(v)
+                           for k, v in two_steps['batch'].items()},
+                      jnp.float32(LR), jnp.float32(1.0),
+                      jax.random.PRNGKey(11))
+    pcfg, model, p, s = _port(setup)
+    _set_remat(pcfg)
+    step = tts.make_train_step(model, pcfg, topt.make_param_meta(p, pcfg),
+                               device='cpu')
+    aug, mask = two_steps['draws'][0]
+    new, logs = step({'params': p, 'state': s,
+                      'opt': topt.init_opt_state(p)},
+                     {k: torch.tensor(v)
+                      for k, v in two_steps['batch'].items()},
+                     LR, 1.0, None, draws={'augment': aug,
+                                           'dropout_mask': mask})
+    assert float(logs['loss']) == pytest.approx(float(jlogs['loss']),
+                                                rel=LOSS_RTOL)
+    assert float(jlogs['loss']) == pytest.approx(two_steps['losses'][0],
+                                                 rel=LOSS_RTOL)
+    start = setup['params']
+    _assert_trees_close(
+        {k: _to_jax_layout(k, v) - start[k]
+         for k, v in new['params'].items()},
+        {k: np.asarray(v) - start[k] for k, v in jts_['params'].items()},
+        TWO_STEP_REL, FLOOR)
+    _assert_trees_close({k: v.numpy() for k, v in new['state'].items()},
+                        _np_tree(jts_['state']), STATE_REL)
 
 
 def test_train_step_device_must_match_model(setup):
