@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, train step and train -> test
-drivers once on one CUDA card.
+"""Drive the PyTorch port's serving path, train step, train -> test
+drivers and retrieval side once on one CUDA card.
 
     python3 chip_smoke.py        # from the repo root, on a GPU host
 
@@ -73,12 +73,37 @@ is non-zero:
 19. serve_mixed - QueryEmbedder on 4-image groups of mixed sizes (host
               preprocessing, the model on the card) and a search of the
               Duke gallery, held against a brute force.
+20. retrieval_scale - a RetrievalIndex of 1,048,576 x 3968 int8 rows
+              (clustered synthetic embeddings made on the card, added in
+              chunks) and Market's 3,368 queries: the streaming scan
+              against the flat route on 64 queries, recall_target 0.95
+              equal to exact, IVF probing every cell of a 65,536-row
+              sub-index equal to its exact scan; the scan's seconds and
+              GB/s, one-query latency flat and IVF, k-means and assignment
+              seconds, recall@100 at nprobe 8 / 16 / 32, peak memory.
+21. test_cuhk03_rerank - ``run_inference`` on the CUHK03 _rerank yaml with
+              REID.VIS on and train_cuhk03's pkl: the card's re-ranking
+              against the C++ engine on the same matrices (mAP and CMC
+              within 1e-3, under 0.5% of entries apart by more than 1e-5),
+              numpy against both on 512 + 1,536 images, the rank-list
+              images of the first queries decode; then the same yaml
+              through ``python -m pps_tpu_torch.tools.test_net`` over the
+              written files prints its Single Query and re-ranked lines.
+22. rerank_market - re-ranking over test_net's 3,368 + 19,732 features on
+              the card, beside the C++ engine: seconds, peak memory, mAP.
+23. serve_daemon - ``python -m pps_tpu_torch.tools.serve`` on the Market
+              yaml with test_net's pkl over 2,048 gallery PNGs: every
+              endpoint with pps_tpu's JSON keys, 20 sequential and 64
+              concurrent /search against an in-process index, /add then
+              /remove, SIGTERM with a save, a --load-index restart and
+              ``tools.retrieve`` answering as before.
 
 The driver phases' own output (json_stats and Single Query lines, logs)
 goes to build/chip_smoke_logs/<phase>.log.  Then a {"kernels": [...]}
-line (launches counted while the main path, phases 3, 5, 7, 10-12 and
-15-19, ran), the nvidia-smi line, and last {"ok": true, "device": {...}}.
-Without a CUDA device it exits non-zero and prints no result.
+line (launches counted per phase while the main path, phases 3, 5, 7,
+10-12 and 15-23, ran), the nvidia-smi line, and last {"ok": true,
+"device": {...}}.  Without a CUDA device it exits non-zero and prints no
+result.
 """
 
 import contextlib
@@ -1133,6 +1158,7 @@ def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec):
          cmc_equal=True, card_metrics_s=card_s, numpy_metrics_s=numpy_s,
          features_pkl_mb=os.path.getsize(os.path.join(
              out_dir, 'features.pkl')) / 1e6, log=log)
+    return feats, roidb
 
 
 # ---------------------------------------------------------------------------
@@ -1605,6 +1631,805 @@ def phase_serve_mixed(dev, train_rec, feats, roidb, decode):
          u8_shape=list(qe._u8_shape), dist2_atol=DIST2_ATOL)
 
 
+# ---------------------------------------------------------------------------
+# retrieval at gallery scale, re-ranking, the serving daemon
+# ---------------------------------------------------------------------------
+
+# the JAX package's serving size: 1,048,576 rows x 3968 int8 (4.16 GB);
+# 16 rows around each of 65,536 random unit identity centres, so a query's
+# top-100 are its identity's 16 rows and 84 rows of the identities whose
+# centres lie nearest its own, spread over many IVF cells
+SCALE_IDS, SCALE_PER_ID = 65536, 16
+SCALE_ROWS = SCALE_IDS * SCALE_PER_ID
+SCALE_DIM = 3968
+SCALE_BUILD = 131072                # rows per RetrievalIndex.add
+SCALE_SEED = 11                     # torch generators on the card
+SCALE_ROW_NOISE = 0.4               # norm of a row's offset from its centre
+SCALE_CHUNK, SCALE_K = 4096, 100
+SCALE_FLAT_QUERIES = 64             # 64 x 1M: the flat route's gate
+IVF_SUB_ROWS, IVF_GATE_QUERIES = 65536, 256
+IVF_RECALL_QUERIES, IVF_NPROBES = 1024, (8, 16, 32)
+LATENCY_QUERIES = 20
+# timed runs of each exact route at 1 query, at the flat route's gate
+# (SCALE_FLAT_QUERIES) and at every query
+ROUTE_REPEATS = {1: 10, SCALE_FLAT_QUERIES: 5, QUERIES: 2}
+FP32_PEAK_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
+TIE_EPS = 1e-5                      # scan vs flat, IVF vs exact: indices
+#   held wherever neighbouring distances differ by more than this (the
+#   two sum 3968 float32 products in other orders)
+SCAN_DIST_ATOL = 1e-4               # ... and distances within this
+RERANK_METRIC_ATOL = 1e-3           # re-ranked mAP / CMC, card vs C++: an
+#   entry moves where a k-th-neighbour distance is a near-tie (~0.1% of
+#   entries in the JAX package's measurement)
+RERANK_ENTRY_ATOL, RERANK_FLIP_SHARE = 1e-5, 0.005  # the near-tie rule
+RERANK_NATIVE_ATOL = 1e-5           # C++ vs numpy: one algorithm, sums in
+#   another order
+RERANK_SUBSET = (512, 1536)         # queries, gallery of the numpy check
+CUHK03_RERANK_YAML = os.path.join(ROOT, 'configs', 'cuhk03',
+                                  'pps_crm_triplet_R-50_1x_rerank.yaml')
+VIS_CHECK = 8
+SERVE_GALLERY, SERVE_QUERIES = 2048, 64
+SERVE_SEQ, SERVE_BURST, SERVE_THREADS = 20, 64, 16
+SERVE_DIST_ATOL = 1e-4              # daemon vs in-process, a query alone
+#   on both sides: the same kernels on the same shapes
+SERVE_BATCH_ATOL = 2e-3             # a query coalesced with others: the
+#   bf16 body at another batch size (cuDNN picks other kernels) moves an
+#   embedding by ~1e-3, bf16's 8-bit mantissa rounding another way; the
+#   in-process batch-of-64 vs alone difference is reported beside it
+# the JSON keys of tools/serve.py's answers (its handler and ServerState)
+SERVE_KEYS = {
+    'healthz': {'status', 'gallery_size', 'dim', 'int8', 'sharded', 'ivf'},
+    'search': {'results', 'reranked', 'latency_ms'},
+    'result': {'rank', 'path', 'distance'},
+    'add': {'added', 'gallery_size'},
+    'remove': {'removed', 'gallery_size'},
+    'stats': {'requests', 'errors', 'adds', 'removes', 'gallery_size',
+              'embed', 'search', 'latency_ms'},
+    'stats.embed': {'dispatches', 'images', 'avg_batch', 'pending', 'shed'},
+    'stats.search': {'dispatches', 'queries', 'device_scans', 'avg_batch',
+                     'pending', 'shed'},
+    'stats.latency_ms': {'mean', 'p50', 'p90', 'p99', 'count'},
+}
+
+
+def _unit_rows(x):
+    import torch
+    return x / torch.linalg.norm(x, dim=1, keepdim=True)
+
+
+def scale_centres(dev):
+    """[SCALE_IDS, SCALE_DIM] identity centres on the card."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SCALE_SEED)
+    return _unit_rows(torch.randn(SCALE_IDS, SCALE_DIM, generator=gen,
+                                  device=dev))
+
+
+def scale_rows(centres, ids, seed):
+    """Unit rows around the centres of identities ``ids`` (a tensor)."""
+    import torch
+    gen = torch.Generator(device=centres.device).manual_seed(seed)
+    noise = torch.randn(len(ids), SCALE_DIM, generator=gen,
+                        device=centres.device)
+    return _unit_rows(centres[ids]
+                      + noise * (SCALE_ROW_NOISE / SCALE_DIM ** 0.5))
+
+
+def _clear(wd, eps, k):
+    """[.., k] mask of the ranks whose distance in ``wd`` (k or more
+    columns) is more than eps from both neighbours: there the order cannot
+    flip under a perturbation below eps.  A column past k tells whether the
+    k-th rank could trade places with the next row outside the list."""
+    gap = np.diff(wd, axis=-1)
+    clear = np.ones(wd.shape, bool)
+    clear[..., 1:] &= gap > eps
+    clear[..., :-1] &= gap > eps
+    return clear[..., :k]
+
+
+def check_topk(name, got, want, eps=TIE_EPS, atol=SCAN_DIST_ATOL):
+    """Indices equal wherever ``want``'s neighbouring distances differ by
+    more than eps; distances within atol.  ``want`` may hold one more
+    column than ``got`` (see ``_clear``).  Returns the share of the slots
+    held index for index, and the largest distance difference."""
+    gd, gi = (np.asarray(a.cpu() if hasattr(a, 'cpu') else a) for a in got)
+    wd, wi = (np.asarray(a.cpu() if hasattr(a, 'cpu') else a) for a in want)
+    k = gi.shape[1]
+    clear = _clear(wd, eps, k)
+    wd, wi = wd[:, :k], wi[:, :k]
+    diff = float(np.abs(gd - wd).max())
+    if gi.shape != wi.shape or diff > atol:
+        raise AssertionError('{}: shapes {} {}, distance diff {}'.format(
+            name, gi.shape, wi.shape, diff))
+    if not np.array_equal(gi[clear], wi[clear]):
+        raise AssertionError('{}: {} indices differ outside near-ties'.format(
+            name, int((gi[clear] != wi[clear]).sum())))
+    return float(clear.mean()), diff
+
+
+def _timed(fn, *a, **k):
+    """(fn's result, seconds), the card synchronised on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_retrieval_scale(dev):
+    """A 1,048,576 x 3968 int8 RetrievalIndex on the card, built by add()
+    in chunks: the streaming scan against the flat route, recall_target
+    against exact, IVF with a full probe against exact on a sub-index;
+    the scan's rate, one-query latency, k-means, recall at 3 nprobes."""
+    import torch
+    from pps_tpu_torch.engine.serving import RetrievalIndex
+    from pps_tpu_torch.ops import ivf as ivf_ops
+    from pps_tpu_torch.ops.topk import (flat_topk, gallery_norms,
+                                        streaming_topk)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    centres = scale_centres(dev)
+    index, sub = None, None
+    for c in range(SCALE_ROWS // SCALE_BUILD):
+        rows = torch.arange(c * SCALE_BUILD, (c + 1) * SCALE_BUILD,
+                            device=dev)
+        feats = scale_rows(centres, rows // SCALE_PER_ID,
+                           SCALE_SEED + 1 + c)
+        paths = ['g%07d' % r for r in range(c * SCALE_BUILD,
+                                            (c + 1) * SCALE_BUILD)]
+        if index is None:
+            index = RetrievalIndex(feats, paths, int8=True, device=dev)
+            sub = (feats[:IVF_SUB_ROWS].clone(), paths[:IVF_SUB_ROWS])
+        else:
+            index.add(feats, paths)
+        del feats
+    q_ids = np.random.RandomState(SCALE_SEED).randint(0, SCALE_IDS, QUERIES)
+    q = scale_rows(centres, torch.as_tensor(q_ids, device=dev),
+                   SCALE_SEED + 1000)
+    del centres
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q_np = q.cpu().numpy()
+    g, s = index._g, index._s
+    n = len(index)
+    if n != SCALE_ROWS or g.dtype != torch.int8:
+        raise AssertionError('index {} rows {}'.format(n, g.dtype))
+    gallery_bytes = g.numel() * g.element_size() + s.numel() * 4
+
+    # gate 1: the streaming scan against the flat route (64 x 1M fits)
+    qf = q[:SCALE_FLAT_QUERIES]
+    st = streaming_topk(qf, g, k=SCALE_K, chunk=SCALE_CHUNK, g_scale=s)
+    fl = flat_topk(qf, g, k=SCALE_K + 1, g_scale=s,
+                   g_norm=gallery_norms(g, s))
+    held_flat, diff_flat = check_topk('streaming vs flat', st, fl)
+    del st, fl
+
+    # the two exact routes on each side of RetrievalIndex's gate: one
+    # query (flat), the gate itself, every query (streaming); warm first
+    gn = gallery_norms(g, s)
+    routes = {'flat': lambda x: flat_topk(x, g, k=SCALE_K, g_scale=s,
+                                          g_norm=gn),
+              'streaming': lambda x: streaming_topk(
+                  x, g, k=SCALE_K, chunk=SCALE_CHUNK, g_scale=s)}
+    routes_ms = {}
+    for nq, reps in ROUTE_REPEATS.items():
+        row = routes_ms[str(nq)] = {}
+        for name, fn in routes.items():
+            fn(q[:nq])
+            row[name] = float(np.median(
+                [_timed(fn, q[:nq])[1] * 1e3 for _ in range(reps)]))
+    del gn
+
+    # all queries: RetrievalIndex.search takes the streaming route
+    (d_ex, i_ex), exact_s = _timed(index.search, q_np, SCALE_K)
+    (d_rt, i_rt), recall_s = _timed(index.search, q_np, SCALE_K,
+                                    recall_target=0.95)
+    if not (np.array_equal(i_rt, i_ex) and np.array_equal(d_rt, d_ex)):
+        raise AssertionError('recall_target 0.95 differs from exact')
+    rank1_same_id = float(np.mean(i_ex[:, 0] // SCALE_PER_ID == q_ids))
+    flops = 2.0 * QUERIES * n * SCALE_DIM
+    scan_bound_s = max(gallery_bytes / HBM_BYTES_PER_S,
+                       flops / FP32_PEAK_FLOPS)
+
+    def one_query_ms():
+        out = []
+        for i in range(LATENCY_QUERIES + 1):
+            _, dt = _timed(index.search, q_np[i:i + 1], SCALE_K)
+            out.append(dt * 1e3)
+        out = out[1:]  # the first warms this shape
+        return {'median': float(np.median(out)),
+                'p90': float(np.percentile(out, 90)), 'min': min(out)}
+    flat_ms = one_query_ms()
+
+    # IVF at the serving size: k-means and assignment timed apart
+    nlist = ivf_ops.default_nlist(n)
+    cent, kmeans_s = _timed(ivf_ops.kmeans, index._host_g, nlist, iters=10,
+                            seed=0, g_scale=index._host_s, sample=262144,
+                            device=dev)
+    _, assign_s = _timed(ivf_ops.assign_clusters, g, cent, g_scale=s)
+    _, install_s = _timed(index._install_ivf, cent, nprobe=IVF_NPROBES[0],
+                          budget=None, spill_limit=None,
+                          train=dict(nlist=nlist, nprobe=IVF_NPROBES[0]))
+    ivf_ms = one_query_ms()
+    ivf = index._ivf
+    recall = {}
+    nr = IVF_RECALL_QUERIES
+    for nprobe in IVF_NPROBES:
+        budget = min(n, max(2048, 4 * nprobe * n // nlist))
+        (_, pos), ivf_s = _timed(
+            ivf_ops.ivf_topk, q[:nr], index._g, ivf['cent'],
+            ivf['starts_dev'], k=SCALE_K, nprobe=nprobe, budget=budget,
+            g_scale=index._s)
+        pos = pos.cpu().numpy()
+        ids = np.where(pos >= 0, ivf['perm'][np.clip(pos, 0, None)], -1)
+        hits = [len(np.intersect1d(a, b)) for a, b in zip(ids, i_ex[:nr])]
+        hits10 = [len(np.intersect1d(a[:10], b[:10]))
+                  for a, b in zip(ids, i_ex[:nr])]
+        recall[str(nprobe)] = {'recall_at_100': float(np.mean(hits)) / 100,
+                               'recall_at_10': float(np.mean(hits10)) / 10,
+                               'budget': budget, 'queries': nr,
+                               'seconds': ivf_s}
+    del index, g, s, ivf
+    torch.cuda.empty_cache()
+
+    # gate 3: IVF probing every cell with a budget >= N is the exact scan
+    sub_index = RetrievalIndex(sub[0], sub[1], int8=True, device=dev)
+    sub_nlist = ivf_ops.default_nlist(IVF_SUB_ROWS)
+    sub_index.enable_ivf(nlist=sub_nlist, nprobe=sub_nlist,
+                         budget=IVF_SUB_ROWS)
+    qs = q_np[:IVF_GATE_QUERIES]
+    held_ivf, diff_ivf = check_topk(
+        'IVF full probe vs exact', sub_index.search(qs, SCALE_K),
+        sub_index.search(qs, SCALE_K + 1, exact=True))
+    emit('retrieval_scale', rows=n, dim=SCALE_DIM, dtype='int8',
+         gallery_gb=gallery_bytes / 1e9, queries=QUERIES, k=SCALE_K,
+         chunk=SCALE_CHUNK, build_s=build_s,
+         streaming_vs_flat={'queries': SCALE_FLAT_QUERIES,
+                            'held_share': held_flat, 'max_dist_diff':
+                            diff_flat, 'tie_eps': TIE_EPS,
+                            'dist_atol': SCAN_DIST_ATOL},
+         exact_routes_ms=routes_ms,
+         flat_gate_queries=RetrievalIndex.FLAT_SCAN_MAX_ELEMS // n,
+         exact_s=exact_s, recall_target_s=recall_s,
+         recall_target_equals_exact=True,
+         scan_gb_per_s=gallery_bytes / exact_s / 1e9,
+         scan_gb_per_s_vs=HBM_BYTES_PER_S / 1e9,
+         scan_bound_s=scan_bound_s, scan_bound_by='operations'
+         if flops / FP32_PEAK_FLOPS > gallery_bytes / HBM_BYTES_PER_S
+         else 'bytes', scan_tflops=flops / exact_s / 1e12,
+         rank1_same_identity=rank1_same_id,
+         one_query_flat_ms=flat_ms, one_query_ivf_ms=ivf_ms,
+         nlist=nlist, kmeans_s=kmeans_s, kmeans_sample=262144,
+         kmeans_iters=10, assign_s=assign_s, ivf_install_s=install_s,
+         ivf_recall=recall,
+         ivf_full_probe={'rows': IVF_SUB_ROWS, 'nlist': sub_nlist,
+                         'queries': IVF_GATE_QUERIES,
+                         'held_share': held_ivf, 'max_dist_diff': diff_ivf},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _write_images(paths, decode):
+    """Write each decode to its path (cv2 picks the format by suffix)."""
+    from pps_tpu_torch.data.transforms import _cv2
+    cv2 = _cv2()
+
+    def one(p):
+        if not cv2.imwrite(p, decode(p)):
+            raise IOError('could not write ' + p)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(one, paths))
+
+
+def _rerank_gates(dev, qg, qq, gg, q_ids, g_ids, q_cams, g_cams):
+    """Card against the C++ engine on the same matrices: (report, the
+    card's re-ranked mAP)."""
+    import torch
+    from pps_tpu_torch import native
+    from pps_tpu_torch.evaluation import evaluator as ev
+    from pps_tpu_torch.evaluation import metrics
+    from pps_tpu_torch.evaluation.device_eval import cmc_map_device
+    from pps_tpu_torch.evaluation.rerank import rerank_distmat_device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    card, card_s = _timed(rerank_distmat_device, qg, qq, gg)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    m_card, c_card = cmc_map_device(card, q_ids, g_ids, q_cams, g_cams)
+    m_card, c_card = float(m_card), c_card.cpu().numpy()
+    host = [t.cpu().numpy() for t in (qg, qq, gg)]
+    t0 = time.perf_counter()
+    nat = native.rerank_native(*host)
+    native_s = time.perf_counter() - t0
+    m_nat = metrics.mean_ap(nat, q_ids, g_ids, q_cams, g_cams)
+    c_nat = metrics.cmc(nat, q_ids, g_ids, q_cams, g_cams, topk=10,
+                        **ev.CMC_KWARGS)
+    far = float(np.mean(np.abs(card.cpu().numpy() - nat)
+                        > RERANK_ENTRY_ATOL))
+    return {'card_s': card_s, 'card_peak_gb_above_inputs': peak_gb,
+            'native_s': native_s, 'map_card': m_card, 'map_native': m_nat,
+            'map_diff': abs(m_card - m_nat),
+            'cmc_max_diff': float(np.abs(c_card - c_nat).max()),
+            'entries_apart_share': far}, c_card
+
+
+def _od_ties(host, k=22):
+    """Share of rows of re-ranking's normalised squared distances whose k
+    smallest hold two equal values (where numpy's unstable argsort and
+    the lowest-index rule may pick different neighbours)."""
+    qg, qq, gg = host
+    od = np.concatenate([np.concatenate([qq, qg], axis=1),
+                         np.concatenate([qg.T, gg], axis=1)])
+    od = np.power(od, 2).astype(np.float32)
+    od = np.transpose(od / np.max(od, axis=0))
+    first = np.sort(od, axis=1)[:, :k]
+    return float(np.mean((np.diff(first, axis=1) == 0).any(axis=1)))
+
+
+def phase_test_cuhk03_rerank(dev, out_root, final_pkl, decode):
+    """run_inference on the CUHK03 _rerank yaml (REID.VIS on) with
+    train_cuhk03's pkl: the card route's re-ranked block against the C++
+    engine on the same matrices, numpy against both on a subset, the
+    rank-list images."""
+    import torch
+    from pps_tpu_torch import native
+    from pps_tpu_torch.config import (cfg, reset_cfg, merge_cfg_from_file,
+                                      merge_cfg_from_list,
+                                      assert_and_infer_cfg)
+    from pps_tpu_torch.data.transforms import _cv2
+    from pps_tpu_torch.engine import test as test_lib
+    from pps_tpu_torch.evaluation import evaluator as ev
+    from pps_tpu_torch.evaluation.rerank import (re_ranking,
+                                                 rerank_distmat_device)
+    from pps_tpu_torch.ops.distance import euclidean_distmat
+    phase = 'test_cuhk03_rerank'
+    out_dir = os.path.join(out_root, phase)
+    reset_cfg()
+    merge_cfg_from_file(CUHK03_RERANK_YAML)
+    merge_cfg_from_list(['OUTPUT_DIR', out_dir, 'REID.VIS', 'True'])
+    assert_and_infer_cfg()
+    roidb = test_lib.roidb_for_test(cfg.TEST.DATASETS[0])
+    t0 = time.perf_counter()
+    _write_images([e['image'] for e in roidb], decode)  # REID.VIS reads
+    write_s = time.perf_counter() - t0
+    seen = {}
+    extract, evaluate = (test_lib.extract_dataset_features,
+                         test_lib.evaluate_dataset)
+
+    def timed(name, fn):
+        def run(*a, **k):
+            out, dt = _timed(fn, *a, **k)
+            seen[name] = (out, dt)
+            return out
+        return run
+    test_lib.extract_dataset_features = timed('extract', extract)
+    test_lib.evaluate_dataset = timed('eval', evaluate)
+    try:
+        with phase_log(phase) as log:
+            results, seconds = _timed(
+                test_lib.run_inference, cfg, weights_file=final_pkl,
+                output_dir=out_dir, decode_fn=decode, device=dev)
+    finally:
+        test_lib.extract_dataset_features = extract
+        test_lib.evaluate_dataset = evaluate
+    lines = [ln for ln in _read(log) if '[mAP:' in ln]
+    single = [ln for ln in lines if ln.startswith('Single Query:')]
+    rr_line = [ln for ln in lines if ln.startswith('Re-ranked Single')]
+    if not single or not rr_line:
+        raise AssertionError('{}: printed {}'.format(phase, lines))
+    print(phase + ': ' + single[0], flush=True)
+    print(phase + ': ' + rr_line[0], flush=True)
+    feats = seen['extract'][0]
+    marks = np.array([e['mark'] for e in roidb])
+    ids = np.array([ev.parse_im_name(e['im_name'], 'id') for e in roidb])
+    cams = np.array([ev.parse_im_name(e['im_name'], 'cam') for e in roidb])
+    q, g = marks == 0, marks == 1
+    ft = torch.as_tensor(feats, device=dev)
+    qf, gf = ft[torch.as_tensor(q, device=dev)], \
+        ft[torch.as_tensor(g, device=dev)]
+    qg, qq, gg = (euclidean_distmat(qf, gf), euclidean_distmat(qf, qf),
+                  euclidean_distmat(gf, gf))
+    report, _ = _rerank_gates(dev, qg, qq, gg, ids[q], ids[g], cams[q],
+                              cams[g])
+    res = results[cfg.TEST.DATASETS[0]]['single_rerank']['mAP']
+    emit(phase + '_card_vs_native', run_inference_map=res, **report)
+    if abs(res - report['map_card']) > MAP_ATOL:
+        raise AssertionError('{}: run_inference re-ranked mAP {} vs {}'
+                             .format(phase, res, report['map_card']))
+    if report['map_diff'] > RERANK_METRIC_ATOL or \
+            report['cmc_max_diff'] > RERANK_METRIC_ATOL or \
+            report['entries_apart_share'] > RERANK_FLIP_SHARE:
+        raise AssertionError('{}: card vs C++ {}'.format(phase, report))
+    # numpy, the golden path, on a subset
+    nq, ng = RERANK_SUBSET
+    sub = [qg[:nq, :ng], qq[:nq, :nq], gg[:ng, :ng]]
+    host = [t.cpu().numpy() for t in sub]
+    t0 = time.perf_counter()
+    gold = re_ranking(*host)
+    numpy_s = time.perf_counter() - t0
+    nat_gap = np.abs(native.rerank_native(*host) - gold)
+    card_gap = np.abs(rerank_distmat_device(*sub).cpu().numpy() - gold)
+    subset = {'queries': nq, 'gallery': ng, 'numpy_s': numpy_s,
+              'native_vs_numpy_max': float(nat_gap.max()),
+              'native_vs_numpy_apart_share':
+              float(np.mean(nat_gap > RERANK_ENTRY_ATOL)),
+              'card_vs_numpy_max': float(card_gap.max()),
+              'card_vs_numpy_apart_share':
+              float(np.mean(card_gap > RERANK_ENTRY_ATOL)),
+              'rows_with_tie_in_first_k1_plus_2': _od_ties(host)}
+    if subset['native_vs_numpy_max'] > RERANK_NATIVE_ATOL or \
+            subset['card_vs_numpy_apart_share'] > RERANK_FLIP_SHARE:
+        emit(phase + '_subset_failed', **subset)
+        raise AssertionError('{}: subset {}'.format(phase, subset))
+    # the rank-list images of the first queries
+    cv2 = _cv2()
+    vis_dir = os.path.join(out_dir, 'vis')
+    q_paths = [e['image'] for e in roidb if e['mark'] == 0][:VIS_CHECK]
+    for p in q_paths:
+        im = cv2.imread(os.path.join(vis_dir, os.path.basename(p)))
+        if im is None or im.ndim != 3:
+            raise AssertionError('{}: no rank-list image for {}'.format(
+                phase, p))
+    # the same yaml through the test_net CLI, as a user runs it: the split
+    # from $PPS_TPU_DATA_DIR (cuhk03/labeled/), the images decoded from the
+    # files written above (JPEG, so its features are not the run's above)
+    data_dir = os.path.join(out_root, 'cli_data')
+    os.makedirs(os.path.join(data_dir, 'cuhk03'), exist_ok=True)
+    os.symlink(os.path.dirname(os.path.dirname(roidb[0]['image'])),
+               os.path.join(data_dir, 'cuhk03', 'labeled'))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, '-m', 'pps_tpu_torch.tools.test_net', '--device',
+         str(dev), '--cfg', CUHK03_RERANK_YAML, 'TEST.WEIGHTS', final_pkl,
+         'OUTPUT_DIR', os.path.join(out_root, 'cli_test')],
+        cwd=ROOT, env=dict(_child_env(phase + '_cli'),
+                           PPS_TPU_DATA_DIR=data_dir),
+        capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    with open(os.path.join(os.path.dirname(log), phase + '_cli.log'),
+              'w') as f:
+        f.write(r.stdout + r.stderr)
+    cli = [ln for ln in r.stdout.splitlines() if '[mAP:' in ln]
+    if r.returncode != 0 or [ln.split('[')[0].strip() for ln in cli] != \
+            ['Single Query:', 'Re-ranked Single Query:']:
+        raise AssertionError('{}: test_net CLI exit {}, printed {}\n{}'
+                             .format(phase, r.returncode, cli,
+                                     r.stderr[-3000:]))
+    print(phase + ' (test_net CLI): ' + cli[1], flush=True)
+    emit(phase, config=os.path.relpath(CUHK03_RERANK_YAML, ROOT),
+         queries=int(q.sum()), gallery=int(g.sum()), single_query=single[0],
+         rerank_line=rr_line[0], test_net_cli_lines=cli,
+         test_net_cli_s=cli_s, run_inference_s=seconds,
+         extract_s=seen['extract'][1], eval_and_vis_s=seen['eval'][1],
+         write_images_s=write_s, vis_images=len(os.listdir(vis_dir)),
+         vis_checked=len(q_paths), card_vs_native=report, subset=subset,
+         metric_atol=RERANK_METRIC_ATOL, entry_atol=RERANK_ENTRY_ATOL,
+         flip_share=RERANK_FLIP_SHARE, log=log)
+
+
+def phase_rerank_market(dev, feats, roidb):
+    """rerank_distmat_device over test_net's 3,368 + 19,732 features: its
+    seconds, peak memory and re-ranked mAP, the C++ engine's beside it."""
+    import torch
+    from pps_tpu_torch.evaluation import evaluator as ev
+    from pps_tpu_torch.ops.distance import euclidean_distmat
+    marks = np.array([e['mark'] for e in roidb])
+    ids = np.array([ev.parse_im_name(e['im_name'], 'id') for e in roidb])
+    cams = np.array([ev.parse_im_name(e['im_name'], 'cam') for e in roidb])
+    q, g = marks == 0, marks == 1
+    ft = torch.as_tensor(feats, device=dev)
+    qf, gf = ft[torch.as_tensor(q, device=dev)], \
+        ft[torch.as_tensor(g, device=dev)]
+    qg, qq, gg = (euclidean_distmat(qf, gf), euclidean_distmat(qf, qf),
+                  euclidean_distmat(gf, gf))
+    report, cmc = _rerank_gates(dev, qg, qq, gg, ids[q], ids[g], cams[q],
+                                cams[g])
+    emit('rerank_market', queries=int(q.sum()), gallery=int(g.sum()),
+         n=int(q.sum() + g.sum()), cmc1_card=float(cmc[0]), **report)
+
+
+class _Daemon(object):
+    """``python -m pps_tpu_torch.tools.serve`` as a user starts it."""
+
+    def __init__(self, root, name, dev, args):
+        self.ready = os.path.join(root, name + '.ready')
+        if os.path.exists(self.ready):
+            os.remove(self.ready)
+        cmd = [sys.executable, '-m', 'pps_tpu_torch.tools.serve',
+               '--device', str(dev), '--port', '0',
+               '--ready-file', self.ready, *args]
+        self.log_path = os.path.join(ROOT, 'build', 'chip_smoke_logs',
+                                     name + '.log')
+        os.makedirs(os.path.dirname(self.log_path), exist_ok=True)
+        self.log = open(self.log_path, 'w')
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, env=_child_env(name),
+                                     stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+        while not os.path.exists(self.ready):
+            if self.proc.poll() is not None or \
+                    time.perf_counter() - t0 > 600:
+                self.kill()
+                raise AssertionError('{} did not start:\n{}'.format(
+                    name, ''.join(open(self.log_path).readlines()[-30:])))
+            time.sleep(0.2)
+        self.start_s = time.perf_counter() - t0
+        with open(self.ready) as f:
+            host, port = f.read().split()
+        self.base = 'http://{}:{}'.format(host, port)
+
+    def get(self, path):
+        import urllib.request
+        with urllib.request.urlopen(self.base + path, timeout=120) as r:
+            body = r.read()
+        return body.decode() if path == '/metrics' else json.loads(body)
+
+    def post(self, path, data, ctype='application/json'):
+        import urllib.request
+        if not isinstance(data, bytes):
+            data = json.dumps(data).encode()
+        req = urllib.request.Request(self.base + path, data=data,
+                                     headers={'Content-Type': ctype})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    def stop(self):
+        import signal
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(120)
+        self.log.close()
+        return rc
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+_CHILDREN = {}  # name -> launch-count file of a child process of the phase
+
+
+def _child_env(name):
+    """The environment of child process ``name`` of the port: the checkout
+    on its path, and the file its entry point writes its kernel launch
+    counts to at exit, which ``child_launches`` reads after the phase."""
+    from pps_tpu_torch.kernels import LAUNCH_COUNTS_ENV
+    env = dict(os.environ)
+    env['PYTHONPATH'] = ROOT + (os.pathsep + env['PYTHONPATH']
+                                if env.get('PYTHONPATH') else '')
+    path = os.path.join(ROOT, 'build', 'chip_smoke_logs',
+                        name + '.launches.json')
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    _CHILDREN[name] = path
+    env[LAUNCH_COUNTS_ENV] = path
+    return env
+
+
+def child_launches():
+    """{child name: {kernel: launches}} of the child processes started
+    since the last call, as each wrote them at its exit; raises for a
+    child that wrote none."""
+    out = {}
+    for name, path in sorted(_CHILDREN.items()):
+        if not os.path.exists(path):
+            raise AssertionError('{} wrote no launch counts'.format(name))
+        with open(path) as f:
+            out[name] = json.load(f)
+    _CHILDREN.clear()
+    return out
+
+
+def _ranked(results):
+    return ([r['path'] for r in results],
+            np.array([r['distance'] for r in results], np.float64))
+
+
+def _same_ranking(name, got, want, eps=SERVE_DIST_ATOL,
+                  atol=SERVE_DIST_ATOL):
+    """Paths equal wherever ``want``'s neighbouring distances differ by
+    more than eps; distances within atol.  ``want`` may hold one more rank
+    than ``got`` (see ``_clear``)."""
+    (gp, gd), (wp, wd) = got, want
+    k = len(gp)
+    clear = _clear(np.asarray(wd, np.float64), eps, k)
+    wp, wd = list(wp[:k]), np.asarray(wd[:k], np.float64)
+    if len(wp) != k or np.abs(np.asarray(gd) - wd).max() > atol or \
+            [p for p, c in zip(gp, clear) if c] != \
+            [p for p, c in zip(wp, clear) if c]:
+        raise AssertionError('{}: {} vs {} (eps {}, atol {})'.format(
+            name, list(zip(gp, np.asarray(gd).tolist())),
+            list(zip(wp, wd.tolist())), eps, atol))
+
+
+def _keys(name, got, want):
+    if set(got) != want:
+        raise AssertionError('{} keys {} != {}'.format(name, sorted(got),
+                                                       sorted(want)))
+
+
+def phase_serve_daemon(dev, final_pkl, roidb, decode):
+    """The port's daemon on the Market yaml with test_net's final pkl over
+    2,048 gallery PNGs: every endpoint, sequential and concurrent
+    /search, /add then /remove, SIGTERM with a save, a --load-index
+    restart and tools.retrieve, each held against an in-process index."""
+    import torch
+    from pps_tpu_torch.config import (cfg, reset_cfg, merge_cfg_from_file,
+                                      assert_and_infer_cfg)
+    from pps_tpu_torch.engine import checkpoint as ckpt_lib
+    from pps_tpu_torch.engine.serving import (QueryEmbedder, RetrievalIndex,
+                                              embed_paths,
+                                              list_gallery_images)
+    from pps_tpu_torch.models.model import build_model
+    root = os.path.join(ROOT, 'build', 'chip_smoke_serve')
+    shutil.rmtree(root, ignore_errors=True)
+    gal_dir, q_dir = os.path.join(root, 'gallery'), os.path.join(root, 'q')
+    os.makedirs(gal_dir)
+    os.makedirs(q_dir)
+    idx_npz = os.path.join(root, 'idx.npz')
+
+    def png(d, e):
+        return os.path.join(d, os.path.splitext(e['im_name'])[0] + '.png')
+    gal = [png(gal_dir, e) for e in roidb if e['mark'] == 1][:SERVE_GALLERY]
+    queries = [png(q_dir, e) for e in roidb if e['mark'] == 0][:SERVE_QUERIES]
+    _write_images(gal + queries, decode)
+    gal = list_gallery_images(gal_dir)
+
+    # the in-process reference: the same yaml, pkl, embedding and index
+    reset_cfg()
+    merge_cfg_from_file(FLAGSHIP_YAML)
+    assert_and_infer_cfg(make_immutable=False)
+    model = build_model(cfg, device=dev)
+    params, state = model.init(torch.Generator().manual_seed(cfg.RNG_SEED))
+    params, state, _ = ckpt_lib.load_checkpoint(final_pkl, model, params,
+                                                state)
+    ref = RetrievalIndex(embed_paths(cfg, model, params, state, gal), gal,
+                         int8=True, device=dev)
+    # each query alone, as a sequential request reaches the daemon's
+    # model (ladder size 1); the batch of 64 shows what coalescing moves
+    qe = QueryEmbedder(cfg, model, params, state, max_batch=BATCH,
+                       device=dev)
+    q_feats = np.concatenate([qe.embed([p]) for p in queries])
+    want_d, _, want_p = ref.search(q_feats, TOPK + 1, return_paths=True)
+    want = [(p, d) for p, d in zip(want_p, want_d)]
+    batch_d = ref.search(qe.embed(queries), TOPK + 1)[0]
+    rr_d, _, rr_p = ref.search_reranked(q_feats[:1], TOPK + 1,
+                                        return_paths=True)
+    del model, params, state, qe, ref
+    torch.cuda.empty_cache()
+
+    def search(d, i, tol=SERVE_DIST_ATOL):
+        with open(queries[i], 'rb') as f:
+            raw = f.read()
+        t0 = time.perf_counter()
+        body = d.post('/search?k={}'.format(TOPK), raw, 'image/png')
+        ms = (time.perf_counter() - t0) * 1e3
+        _keys('/search', body, SERVE_KEYS['search'])
+        for r in body['results']:
+            _keys('/search result', r, SERVE_KEYS['result'])
+        got = _ranked(body['results'])
+        _same_ranking('/search query {}'.format(i), got, want[i], eps=tol,
+                      atol=tol)
+        return got, ms
+
+    common = ['--cfg', FLAGSHIP_YAML, '--weights', final_pkl,
+              '--save-index', idx_npz]
+    d = _Daemon(root, 'serve_daemon', dev, common + ['--gallery', gal_dir,
+                                                     '--int8-gallery'])
+    report = {'start_s': d.start_s, 'batch_vs_alone_max_dist_diff':
+              float(np.abs(batch_d - want_d).max())}
+    try:
+        health = d.get('/healthz')
+        _keys('/healthz', health, SERVE_KEYS['healthz'])
+        if health['gallery_size'] != SERVE_GALLERY or not health['int8']:
+            raise AssertionError('/healthz {}'.format(health))
+        seq = [search(d, i % SERVE_QUERIES) for i in range(SERVE_SEQ)]
+        before = [r[0] for r in seq[:VIS_CHECK]]
+        ms = [r[1] for r in seq]
+        report['sequential'] = {'requests': SERVE_SEQ,
+                                'p50_ms': float(np.percentile(ms, 50)),
+                                'p90_ms': float(np.percentile(ms, 90))}
+        e0 = d.get('/stats')['embed']
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_THREADS) as pool:
+            burst = list(pool.map(lambda i: search(d, i, SERVE_BATCH_ATOL),
+                                  range(SERVE_BURST)))
+        burst_s = time.perf_counter() - t0
+        e1 = d.get('/stats')['embed']
+        ms = [r[1] for r in burst]
+        report['concurrent'] = {
+            'requests': SERVE_BURST, 'threads': SERVE_THREADS,
+            'p50_ms': float(np.percentile(ms, 50)),
+            'p90_ms': float(np.percentile(ms, 90)),
+            'requests_per_s': SERVE_BURST / burst_s,
+            'embed_mean_batch': (e1['images'] - e0['images'])
+            / max(1, e1['dispatches'] - e0['dispatches'])}
+        rr = d.post('/search_path', {'path': queries[0], 'k': TOPK,
+                                     'rerank': True})
+        _keys('/search_path', rr, SERVE_KEYS['search'])
+        if not rr['reranked']:
+            raise AssertionError('/search_path rerank not re-ranked')
+        _same_ranking('/search_path rerank', _ranked(rr['results'][0]),
+                      (rr_p[0], rr_d[0]))
+        multi = d.post('/search_path', {'paths': queries[:4], 'multi': True,
+                                        'k': TOPK})
+        _keys('/search_path multi', multi, SERVE_KEYS['search'])
+        if len(multi['results']) != 1 or len(multi['results'][0]) != TOPK:
+            raise AssertionError('/search_path multi {}'.format(multi))
+        added = d.post('/add', {'paths': queries})
+        _keys('/add', added, SERVE_KEYS['add'])
+        removed = d.post('/remove', {'paths': queries})
+        _keys('/remove', removed, SERVE_KEYS['remove'])
+        if added['gallery_size'] != SERVE_GALLERY + SERVE_QUERIES or \
+                removed != {'removed': SERVE_QUERIES,
+                            'gallery_size': SERVE_GALLERY}:
+            raise AssertionError('/add {} /remove {}'.format(added, removed))
+        for i, b in enumerate(before):
+            _same_ranking('after /add + /remove', search(d, i)[0], b,
+                          eps=1e-6, atol=1e-6)
+        stats = d.get('/stats')
+        _keys('/stats', stats, SERVE_KEYS['stats'])
+        for k in ('embed', 'search', 'latency_ms'):
+            _keys('/stats ' + k, stats[k], SERVE_KEYS['stats.' + k])
+        metrics = d.get('/metrics')
+        if 'pps_serve_search_latency_ms_p90' not in metrics:
+            raise AssertionError('/metrics:\n' + metrics)
+        report['stats'] = stats
+    except BaseException:
+        d.kill()
+        raise
+    rc = d.stop()
+    if rc != 0 or not os.path.exists(idx_npz):
+        raise AssertionError('SIGTERM: exit {}, {} written: {}'.format(
+            rc, idx_npz, os.path.exists(idx_npz)))
+
+    d = _Daemon(root, 'serve_daemon_restart', dev,
+                common + ['--load-index', idx_npz])
+    report['restart_start_s'] = d.start_s
+    try:
+        for i, b in enumerate(before):
+            _same_ranking('after restart', search(d, i)[0], b, eps=1e-6,
+                          atol=1e-6)
+    except BaseException:
+        d.kill()
+        raise
+    if d.stop() != 0:
+        raise AssertionError('restarted daemon: non-zero exit')
+
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, '-m', 'pps_tpu_torch.tools.retrieve', '--device',
+         str(dev), '--cfg', FLAGSHIP_YAML, '--weights', final_pkl,
+         '--load-index', idx_npz, '--topk', str(TOPK), '--query',
+         *queries[:VIS_CHECK]],
+        cwd=ROOT, env=_child_env('retrieve'), capture_output=True,
+        text=True, timeout=600)
+    report['retrieve_s'] = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError('retrieve: exit {}\n{}'.format(
+            r.returncode, r.stderr[-3000:]))
+    blocks = r.stdout.split('query: ')[1:]
+    if len(blocks) != VIS_CHECK:
+        raise AssertionError('retrieve printed:\n' + r.stdout[-3000:])
+    for i, block in enumerate(blocks):
+        rows = [ln.split() for ln in block.splitlines()[1:] if ln.strip()]
+        got = ([row[2] for row in rows],
+               np.array([float(row[1][2:]) for row in rows]))
+        # retrieve embeds its queries as one batch (the bf16 body at another
+        # batch size), and prints distances to 4 decimals (5e-5 of rounding)
+        _same_ranking('retrieve query {}'.format(i), got, want[i],
+                      eps=SERVE_BATCH_ATOL, atol=SERVE_BATCH_ATOL + 5e-5)
+    emit('serve_daemon', gallery=SERVE_GALLERY, queries=SERVE_QUERIES,
+         k=TOPK, config=os.path.relpath(FLAGSHIP_YAML, ROOT),
+         dist_atol=SERVE_DIST_ATOL, batch_atol=SERVE_BATCH_ATOL,
+         endpoints_checked=sorted(SERVE_KEYS),
+         **report)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1618,55 +2443,65 @@ def main():
     kernels = [phase_kernel(dev)]
     gallery = make_gallery()
 
-    # main path, part 1: extraction (counts zeroed just before, read after)
-    ze.launches = 0
-    cfg, model, params, state, feats = phase_extract(dev, gallery)
-    launches = {'zero_even': ze.launches}
+    # each phase of the main path runs through driven(): the launch counts
+    # are zeroed just before it and read just after, per phase; a child
+    # process of the port (test_net, the daemon, retrieve) starts at 0 and
+    # writes its own counts at exit, which are added to its phase's
+    by_phase, in_children = {}, {}
 
+    def driven(name, fn, *args):
+        ze.launches = 0
+        _CHILDREN.clear()
+        out = fn(*args)
+        children = child_launches()
+        by_phase[name] = ze.launches + sum(c['zero_even']
+                                           for c in children.values())
+        if children:
+            in_children[name] = {c: v['zero_even']
+                                 for c, v in children.items()}
+        torch.cuda.empty_cache()
+        return out
+
+    # main path, part 1: extraction and serving
+    cfg, model, params, state, feats = driven('extract', phase_extract, dev,
+                                              gallery)
     phase_agree(dev, params, state, gallery)
-
-    # main path, part 2: serving
-    ze.launches = 0
-    phase_serve(dev, cfg, model, params, state, gallery, feats)
-    launches['zero_even'] += ze.launches
-
+    driven('serve', phase_serve, dev, cfg, model, params, state, gallery,
+           feats)
     phase_profile(dev, model, params, state, gallery, cfg)
     del model, params, state, feats
     torch.cuda.empty_cache()
 
-    # main path, part 3: the train step
-    ze.launches = 0
-    step, ts, batch, bare_ms = phase_train(dev, gallery)
-    launches['zero_even'] += ze.launches
-
+    # main path, part 2: the train step
+    step, ts, batch, bare_ms = driven('train', phase_train, dev, gallery)
     phase_profile_train(dev, step, ts, batch)
     del step, ts, batch
     torch.cuda.empty_cache()
     phase_train_agree(dev, gallery)
     torch.cuda.empty_cache()
-
     phase_remat(dev, gallery)
     torch.cuda.empty_cache()
 
-    # main path, part 4: the train -> test drivers
+    # main path, part 3: the train -> test drivers
     out_root = os.path.join(ROOT, 'build', 'chip_smoke_run')
-    shutil.rmtree(out_root, ignore_errors=True)
+    keep = os.path.join(ROOT, 'build', 'chip_smoke_keep')
+    for d in (out_root, keep):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(keep)
     decode = MarketDecoder()
     write_market(os.path.join(out_root, 'data'))
-    ze.launches = 0
-    cfg, rec, final_pkl = phase_train_net(dev, out_root, decode, bare_ms)
-    launches['zero_even'] += ze.launches
-    ze.launches = 0
-    phase_resume(dev, out_root, decode, rec, final_pkl)
-    launches['zero_even'] += ze.launches
-    ze.launches = 0
-    phase_test_net(dev, out_root, cfg, final_pkl, decode, rec)
-    launches['zero_even'] += ze.launches
+    cfg, rec, final_pkl = driven('train_net', phase_train_net, dev, out_root,
+                                 decode, bare_ms)
+    driven('resume', phase_resume, dev, out_root, decode, rec, final_pkl)
+    market_feats, market_roidb = driven('test_net', phase_test_net, dev,
+                                        out_root, cfg, final_pkl, decode, rec)
+    market_pkl = os.path.join(keep, 'market_model_final.pkl')
+    shutil.copyfile(final_pkl, market_pkl)  # for the serving daemon
     del rec, gallery
     shutil.rmtree(out_root, ignore_errors=True)  # ~2.5 GB of checkpoints
     torch.cuda.empty_cache()
 
-    # main path, part 5: the mixed-size datasets through the drivers
+    # main path, part 4: the mixed-size datasets through the drivers
     decoders = {}
     for spec in (DUKE, CUHK03):
         decoders[spec['name']] = MixedDecoder(size_table(spec),
@@ -1675,31 +2510,43 @@ def main():
                     decoders[spec['name']])
     duke, cuhk = decoders['duke'], decoders['cuhk03']
     phase_augment_agree(dev, duke)
-
-    def driven(fn, *args):
-        ze.launches = 0
-        out = fn(*args)
-        launches['zero_even'] += ze.launches
-        torch.cuda.empty_cache()
-        return out
-    duke_rec, duke_pkl = driven(phase_train_mixed, dev, out_root, DUKE, duke,
-                                DUKE_EPOCHS, 'train_duke')
-    driven(phase_host_chain, dev, out_root, duke)
+    duke_rec, duke_pkl = driven('train_duke', phase_train_mixed, dev,
+                                out_root, DUKE, duke, DUKE_EPOCHS,
+                                'train_duke')
+    driven('host_chain', phase_host_chain, dev, out_root, duke)
     # one epoch: the checkpoint for test_cuhk03; its loss is reported
-    cuhk_rec, cuhk_pkl = driven(phase_train_mixed, dev, out_root, CUHK03,
-                                cuhk, CUHK03_EPOCHS, 'train_cuhk03', False)
-    feats, roidb = driven(phase_test_mixed, dev, out_root, 'test_duke',
-                          DUKE['yaml'], duke_pkl, duke, duke_rec)
-    driven(phase_test_mixed, dev, out_root, 'test_duke_fliptta',
-           DUKE_FLIPTTA_YAML, duke_pkl, duke, duke_rec)
-    driven(phase_test_mixed, dev, out_root, 'test_cuhk03', CUHK03['yaml'],
-           cuhk_pkl, cuhk, cuhk_rec)
-    driven(phase_serve_mixed, dev, duke_rec, feats, roidb, duke)
-    del duke_rec, cuhk_rec
-    shutil.rmtree(out_root, ignore_errors=True)
+    cuhk_rec, cuhk_pkl = driven('train_cuhk03', phase_train_mixed, dev,
+                                out_root, CUHK03, cuhk, CUHK03_EPOCHS,
+                                'train_cuhk03', False)
+    feats, roidb = driven('test_duke', phase_test_mixed, dev, out_root,
+                          'test_duke', DUKE['yaml'], duke_pkl, duke,
+                          duke_rec)
+    driven('test_duke_fliptta', phase_test_mixed, dev, out_root,
+           'test_duke_fliptta', DUKE_FLIPTTA_YAML, duke_pkl, duke, duke_rec)
+    driven('test_cuhk03', phase_test_mixed, dev, out_root, 'test_cuhk03',
+           CUHK03['yaml'], cuhk_pkl, cuhk, cuhk_rec)
+    driven('serve_mixed', phase_serve_mixed, dev, duke_rec, feats, roidb,
+           duke)
+    del duke_rec, cuhk_rec, feats, roidb
+
+    # main path, part 5: retrieval at gallery scale, re-ranking, the daemon
+    driven('retrieval_scale', phase_retrieval_scale, dev)
+    driven('test_cuhk03_rerank', phase_test_cuhk03_rerank, dev, out_root,
+           cuhk_pkl, cuhk)
+    driven('rerank_market', phase_rerank_market, dev, market_feats,
+           market_roidb)
+    del market_feats
+    driven('serve_daemon', phase_serve_daemon, dev, market_pkl,
+           market_roidb, decode)
+    for d in (out_root, keep, os.path.join(ROOT, 'build',
+                                           'chip_smoke_serve')):
+        shutil.rmtree(d, ignore_errors=True)
 
     for k in kernels:
-        k['launches'] = launches[k['name']]
+        # zero_even is the only kernel, so every count is its own
+        k['launches'] = sum(by_phase.values())
+        k['launches_by_phase'] = by_phase
+        k['launches_in_child_processes'] = in_children
         if k['on_main_path'] and k['launches'] == 0:
             raise AssertionError('{} never launched on the main path'.format(
                 k['name']))

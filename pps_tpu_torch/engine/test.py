@@ -13,9 +13,12 @@ sample's ``valid_hw``.  Batches outside the uint8 contracts, and
 ``TPU.DEVICE_PREPROC False``, take the float32 host preprocessing
 (``transforms.prep_im_for_blob``).
 
-Not ported: int8 extraction (``TPU.INT8_EVAL``, ROADMAP slice 6), orbax
-weights (slice 8), re-ranking and the rank-list visualisation
-(``REID.RERANK``, ``REID.VIS``, slice 5).  Each raises.
+``REID.RERANK`` adds the re-ranked blocks (on the card with
+``TPU.DEVICE_EVAL``, else the host C++ engine), and ``REID.VIS`` writes
+rank-list images to ``<output_dir>/vis/``.
+
+Not ported: int8 extraction (``TPU.INT8_EVAL``, ROADMAP slice 6) and orbax
+weights (slice 8).  Each raises.
 """
 
 import collections
@@ -275,12 +278,11 @@ def test_net(cfg, weights_file, dataset_name, output_dir=None,
 
 def evaluate_dataset(cfg, feats, roidb, distmat_fn=None, output_dir=None,
                      device=None):
-    """CMC/mAP (and multi-query) from features and the roidb's marks.  On
-    the card the distance matrix and, with ``TPU.DEVICE_EVAL``, the
-    single-query metrics are computed there."""
-    if cfg.REID.VIS:
-        raise NotImplementedError(
-            'REID.VIS (rank-list images) is not ported yet (ROADMAP slice 5)')
+    """CMC/mAP (multi-query and re-ranked blocks too) from features and the
+    roidb's marks.  On the card the distance matrices and, with
+    ``TPU.DEVICE_EVAL``, the single-query metrics and the re-ranking are
+    computed there.  ``REID.VIS``: rank-list images of the single-query
+    block in ``<output_dir>/vis/``."""
     device = resolve_device(device)
     ids = np.array([eval_lib.parse_im_name(e['im_name'], 'id')
                     for e in roidb])
@@ -295,11 +297,22 @@ def evaluate_dataset(cfg, feats, roidb, distmat_fn=None, output_dir=None,
             return euclidean_distmat(
                 torch.as_tensor(q, dtype=torch.float32, device=device),
                 torch.as_tensor(g, dtype=torch.float32, device=device))
-    return eval_lib.evaluate(
+    results = eval_lib.evaluate(
         feats, ids, cams, marks, to_re_rank=cfg.REID.RERANK,
         distmat_fn=distmat_fn,
         device_single_query=on_card and bool(cfg.TPU.DEVICE_EVAL),
-        device=device)
+        device=device,
+        device_rerank=on_card and bool(cfg.TPU.DEVICE_EVAL))
+    if cfg.REID.VIS and output_dir:
+        from pps_tpu_torch.evaluation.metrics import compute_dist
+        from pps_tpu_torch.evaluation.visualize import visualize_rank_lists
+        q = marks == 0
+        g = marks == 1
+        paths = np.array([e['image'] for e in roidb])
+        visualize_rank_lists(
+            compute_dist(feats[q], feats[g]), ids[q], ids[g], cams[q],
+            cams[g], paths[q], paths[g], os.path.join(output_dir, 'vis'))
+    return results
 
 
 def run_inference(cfg, weights_file=None, output_dir=None, decode_fn=None,
@@ -308,8 +321,6 @@ def run_inference(cfg, weights_file=None, output_dir=None, decode_fn=None,
     ``TEST.DATASETS``.  Returns {dataset: results}.  Without an
     ``output_dir`` the artifacts go to <OUTPUT_DIR>/test/<dataset>/."""
     weights_file = weights_file or cfg.TEST.WEIGHTS
-    if cfg.REID.RERANK:  # refused before extracting, not after
-        raise NotImplementedError(eval_lib.RERANK_TODO)
     from pps_tpu_torch.config import get_output_dir
     results = {}
     datasets = cfg.TEST.DATASETS

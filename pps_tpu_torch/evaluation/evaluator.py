@@ -6,7 +6,9 @@ The protocol and the printed lines are the reference evaluator's: the
 their format is an API.  The caller passes features plus per-image (id,
 cam, mark) arrays, mark 0 = query, 1 = gallery, 2 = multi-query.
 
-Not ported: k-reciprocal re-ranking (``to_re_rank``; ROADMAP slice 5).
+Re-ranked blocks (``to_re_rank``) run k-reciprocal re-ranking on the card
+(``rerank.rerank_distmat_device``, scored there) when asked, else on the
+host through the C++ engine (``native``).
 """
 
 import logging
@@ -22,10 +24,6 @@ logger = logging.getLogger(__name__)
 # the Market-1501 CMC protocol, for every dataset
 CMC_KWARGS = dict(separate_camera_set=False, single_gallery_shot=False,
                   first_match_break=True)
-
-RERANK_TODO = ('re-ranking is not ported yet (ROADMAP slice 5: '
-                'streaming_topk, IVF, re-ranking and the serving daemon); '
-                'set REID.RERANK False')
 
 
 def parse_im_name(im_name, parse_type='id'):
@@ -58,9 +56,11 @@ def print_scores(label, m_ap, cmc_scores):
 
 
 def evaluate(feat, ids, cams, marks, to_re_rank=False, pool_type='average',
-             distmat_fn=None, device_single_query=False, device=None):
+             distmat_fn=None, device_single_query=False, device=None,
+             device_rerank=False):
     """mAP/CMC for the single-query and (when marks hold 2s) the pooled
-    multi-query blocks; prints one line for each.
+    multi-query blocks, and with ``to_re_rank`` their re-ranked variants;
+    prints one line for each.
 
     feat: [N, D] embeddings of the whole test set (numpy).
     distmat_fn: optional (q, g) -> distance matrix (numpy or a tensor);
@@ -69,10 +69,13 @@ def evaluate(feat, ids, cams, marks, to_re_rank=False, pool_type='average',
       (``device_eval.evaluate_on_device``: distance matrix and metrics on
       the card) and the multi-query block with the same scorer; the numpy
       ``metrics`` stay the golden path.
-    Returns {'single': {...}[, 'multi': {...}]}.
+    device_rerank: re-rank on ``device`` (``rerank_distmat_device``) and
+      score the result there (``cmc_map_device``); the [N, N] matrices
+      never cross to the host.  Otherwise the host C++ engine re-ranks
+      (``native``; it raises if it cannot be built).
+    Returns {'single': {...}[, 'multi': {...}][, 'single_rerank': {...}]
+    [, 'multi_rerank': {...}]}.
     """
-    if to_re_rank:
-        raise NotImplementedError(RERANK_TODO)
     feat = np.asarray(feat)
     ids = np.asarray(ids)
     cams = np.asarray(cams)
@@ -94,6 +97,7 @@ def evaluate(feat, ids, cams, marks, to_re_rank=False, pool_type='average',
         return m_ap, cmc_scores
 
     results = {}
+    q_g_dist = None
     if device_single_query:
         from pps_tpu_torch.evaluation.device_eval import evaluate_on_device
         dev = evaluate_on_device(feat, ids, cams, marks,
@@ -107,6 +111,7 @@ def evaluate(feat, ids, cams, marks, to_re_rank=False, pool_type='average',
     print_scores('Single Query:', m_ap, cmc_scores)
     results['single'] = _metric_dict(m_ap, cmc_scores)
 
+    mq_feat = None
     if np.any(mq_inds):
         mq_ids = ids[mq_inds]
         mq_cams = cams[mq_inds]
@@ -130,4 +135,36 @@ def evaluate(feat, ids, cams, marks, to_re_rank=False, pool_type='average',
                                            ids[g_inds], k_cams, cams[g_inds])
         print_scores('Multi Query:', mq_map, mq_cmc)
         results['multi'] = _metric_dict(mq_map, mq_cmc)
+
+    if not to_re_rank:
+        return results
+    if device_rerank:
+        from pps_tpu_torch.evaluation.device_eval import cmc_map_device
+        from pps_tpu_torch.evaluation.rerank import rerank_distmat_device
+
+        def rerank_score(qg, qq, gg, q_ids, q_cams):
+            rr = rerank_distmat_device(qg, qq, gg, device=device)
+            m, c = cmc_map_device(rr, q_ids, ids[g_inds], q_cams,
+                                  cams[g_inds], topk=10, device=device)
+            return float(m), c.cpu().numpy()
+    else:
+        from pps_tpu_torch import native
+
+        def rerank_score(qg, qq, gg, q_ids, q_cams):
+            rr = native.rerank_native(_host(qg), _host(qq), _host(gg))
+            return compute_score(rr, q_ids, ids[g_inds], q_cams,
+                                 cams[g_inds])
+    if q_g_dist is None:  # the card's single-query block kept no distmat
+        q_g_dist = dist_fn(feat[q_inds], feat[g_inds])
+    g_g_dist = dist_fn(feat[g_inds], feat[g_inds])  # shared below
+    rr_map, rr_cmc = rerank_score(
+        q_g_dist, dist_fn(feat[q_inds], feat[q_inds]), g_g_dist,
+        ids[q_inds], cams[q_inds])
+    print_scores('Re-ranked Single Query:', rr_map, rr_cmc)
+    results['single_rerank'] = _metric_dict(rr_map, rr_cmc)
+    if mq_feat is not None:
+        rr_map, rr_cmc = rerank_score(mq_g_dist, dist_fn(mq_feat, mq_feat),
+                                      g_g_dist, k_ids, k_cams)
+        print_scores('Re-ranked Multi Query:', rr_map, rr_cmc)
+        results['multi_rerank'] = _metric_dict(rr_map, rr_cmc)
     return results

@@ -1,0 +1,33 @@
+"""The port's hand-written kernels, each with a wrapper that counts its
+launches.
+
+``launch_counts()`` gathers those counts for this process.  An entry point
+run as a program writes them at exit to the file named by
+``$PPS_TPU_TORCH_LAUNCH_COUNTS`` (``write_launch_counts``), so a driver
+that starts it as a child process reads which kernels that process
+launched.
+"""
+
+import json
+import os
+
+LAUNCH_COUNTS_ENV = 'PPS_TPU_TORCH_LAUNCH_COUNTS'
+
+
+def launch_counts():
+    """{kernel name: launches counted by its wrapper in this process}."""
+    from pps_tpu_torch.kernels import zero_even
+    return {'zero_even': zero_even.launches}
+
+
+def write_launch_counts():
+    """Write ``launch_counts()`` as JSON to ``$PPS_TPU_TORCH_LAUNCH_COUNTS``
+    when it is set (through a temporary name, so a reader never sees half a
+    file)."""
+    path = os.environ.get(LAUNCH_COUNTS_ENV)
+    if not path:
+        return
+    tmp = '{}.tmp{}'.format(path, os.getpid())
+    with open(tmp, 'w') as f:
+        json.dump(launch_counts(), f)
+    os.replace(tmp, path)

@@ -83,4 +83,8 @@ def main(argv=None):
 
 
 if __name__ == '__main__':
-    main()
+    from pps_tpu_torch.kernels import write_launch_counts
+    try:
+        main()
+    finally:
+        write_launch_counts()

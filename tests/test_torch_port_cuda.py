@@ -6,7 +6,8 @@ sets up, hence ``--noconftest``):
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 This file imports torch and numpy only.  It holds each kernel against its
-plain version and the card's float32 path against the CPU's.
+plain version and the card's float32 path against the CPU's: extraction,
+the exact, streaming and IVF top-k, re-ranking, the train step.
 """
 
 import numpy as np
@@ -19,7 +20,9 @@ from pps_tpu_torch.flagship import flagship_cfg
 from pps_tpu_torch.kernels import build
 from pps_tpu_torch.kernels import zero_even as ze
 from pps_tpu_torch.models.model import build_model
-from pps_tpu_torch.ops.topk import flat_topk, quantize_gallery
+from pps_tpu_torch.evaluation.rerank import re_ranking, rerank_distmat_device
+from pps_tpu_torch.ops import ivf
+from pps_tpu_torch.ops.topk import flat_topk, quantize_gallery, streaming_topk
 from pps_tpu_torch.parallel import eval_step as es
 
 pytestmark = pytest.mark.cuda
@@ -128,6 +131,83 @@ def test_flat_topk_card_matches_cpu(cuda, int8):
     assert gi[2, :3].tolist() == [7, 100, 250]
     np.testing.assert_allclose(gd.cpu().numpy() ** 2, wd.numpy() ** 2,
                                atol=1e-4)
+
+
+def _unit(n, d, seed):
+    x = np.random.RandomState(seed).randn(n, d).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _same_topk(got, want, eps=1e-5):
+    """Indices equal wherever neighbouring distances differ by more than
+    eps (float32 sums in other orders); squared distances within 1e-4."""
+    gd, gi = (t.cpu().numpy() for t in got)
+    wd, wi = (t.cpu().numpy() for t in want)
+    np.testing.assert_allclose(gd ** 2, wd ** 2, rtol=0, atol=1e-4)
+    gap = np.diff(wd, axis=1)
+    clear = np.ones(wd.shape, bool)
+    clear[:, 1:] &= gap > eps
+    clear[:, :-1] &= gap > eps
+    np.testing.assert_array_equal(gi[clear], wi[clear])
+
+
+@pytest.mark.parametrize('int8', [False, True])
+def test_streaming_matches_flat_on_card(cuda, int8):
+    g = _unit(5000, 64, 5)
+    g[[300, 4100]] = g[17]          # ties across chunks
+    q = _unit(40, 64, 6)
+    q[3] = g[17]
+    gt, s = torch.tensor(g, device=cuda), None
+    if int8:
+        gt, s = quantize_gallery(gt)
+        g8, s8 = quantize_gallery(g)
+        assert np.array_equal(gt.cpu().numpy(), g8)     # the same bytes
+        assert np.array_equal(s.cpu().numpy(), s8)
+    qt = torch.tensor(q, device=cuda)
+    st = streaming_topk(qt, gt, k=100, chunk=1024, g_scale=s)
+    fl = flat_topk(qt, gt, k=100, g_scale=s)
+    _same_topk(st, fl)
+    assert st[1][3, :3].tolist() == [17, 300, 4100]
+    cpu = streaming_topk(qt.cpu(), gt.cpu(), k=100, chunk=1024,
+                         g_scale=None if s is None else s.cpu())
+    _same_topk(st, cpu)
+
+
+def test_ivf_full_probe_equals_exact_on_card(cuda):
+    g = _unit(6000, 48, 7)
+    q = _unit(30, 48, 8)
+    cent = ivf.kmeans(g, 32, iters=4, device=cuda)
+    assign = ivf.assign_clusters(g, cent)
+    perm, starts = ivf.build_ivf(assign, cent.shape[0])
+    gs = torch.tensor(g[perm], device=cuda)
+    qt = torch.tensor(q, device=cuda)
+    got = ivf.ivf_topk(qt, gs, cent, torch.tensor(starts, device=cuda),
+                       k=50, nprobe=cent.shape[0], budget=len(g),
+                       chunk=2048)
+    _same_topk(got, streaming_topk(qt, gs, k=50, chunk=2048))
+    # the card's k-means from the same rows as the CPU's
+    np.testing.assert_allclose(
+        cent.cpu().numpy(), ivf.kmeans(g, 32, iters=4, device='cpu').numpy(),
+        rtol=0, atol=1e-4)
+
+
+def test_rerank_device_on_card_matches_cpu_numpy(cuda):
+    rng = np.random.RandomState(9)
+    centers = rng.randn(20, 32)
+    f = centers[rng.randint(0, 20, 400)] + 0.7 * rng.randn(400, 32)
+    f = (f / np.linalg.norm(f, axis=1, keepdims=True)).astype(np.float32)
+    q, g = f[:80], f[80:]
+
+    def dist(a, b):
+        return np.sqrt(np.maximum(
+            (a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
+            - 2 * a @ b.T, 0)).astype(np.float32)
+    qg, qq, gg = dist(q, g), dist(q, q), dist(g, g)
+    want = re_ranking(qg, qq, gg)
+    got = rerank_distmat_device(qg, qq, gg, device=cuda)
+    assert got.device.type == 'cuda'
+    far = np.abs(got.cpu().numpy() - want) > 1e-5
+    assert far.mean() <= 0.005, far.mean()   # near-tie membership flips
 
 
 def test_serving_on_card_matches_cpu(small_models):

@@ -215,8 +215,15 @@ def test_evaluate_matches(capsys, device_single_query):
                           else MAP_ATOL)
     assert got_out == want_out
     assert got_out.startswith('Single Query:') and 'Multi Query:' in got_out
-    with pytest.raises(NotImplementedError, match='slice 5'):
-        teval.evaluate(feats, ids, cams, marks, to_re_rank=True)
+    # re-ranking (ported) adds its blocks and leaves the others as they were
+    rr = teval.evaluate(feats, ids, cams, marks, to_re_rank=True,
+                        device_single_query=device_single_query,
+                        device='cpu')
+    rr_out = capsys.readouterr().out
+    assert sorted(rr) == ['multi', 'multi_rerank', 'single', 'single_rerank']
+    _assert_results_close({b: rr[b] for b in got}, got, 0)
+    assert rr_out.startswith(got_out)
+    assert 'Re-ranked Single Query:' in rr_out
 
 
 def test_parse_im_name_and_expected_results():
@@ -306,9 +313,7 @@ def test_run_inference_matches(tmp_path, capsys):
 
 
 def test_engine_refuses_unported_paths(tmp_path):
-    _, tc = both_cfgs(TINY + ['REID.RERANK', 'True'])
-    with pytest.raises(NotImplementedError, match='slice 5'):
-        ttest_engine.run_inference(tc, None, str(tmp_path), device='cpu')
+    # (REID.RERANK and REID.VIS are ported: slice 5)
     _, tc = both_cfgs(TINY + ['TPU.INT8_EVAL', 'True'])
     with pytest.raises(NotImplementedError, match='slice 6'):
         ttest_engine.test_net(tc, None, 'port_eval_test', device='cpu')

@@ -223,9 +223,13 @@ def test_retrieval_index_gates():
     _, g = _gallery()
     idx = tserv.RetrievalIndex(g, list(range(len(g))), int8=True,
                                device='cpu')
+    flat = idx.search(g[:2], 3)
+    # above the flat route's gate the search streams (ported), with the
+    # same result
     idx.FLAT_SCAN_MAX_ELEMS = 10
-    with pytest.raises(NotImplementedError, match='streaming'):
-        idx.search(g[:1], 3)
+    streamed = idx.search(g[:2], 3)
+    np.testing.assert_array_equal(streamed[1], flat[1])
+    np.testing.assert_allclose(streamed[0] ** 2, flat[0] ** 2, atol=DIST_ATOL)
 
 
 # ---------------------------------------------------------------------------
