@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, train step, train -> test
-drivers and retrieval side once on one CUDA card.
+drivers, retrieval side and model variants once on one CUDA card.
 
     python3 chip_smoke.py        # from the repo root, on a GPU host
 
@@ -10,8 +10,13 @@ is non-zero:
 1. build    - nvcc builds every kernel in pps_tpu_torch/csrc (in parallel);
               the card's name and power limit from nvidia-smi.
 2. kernel   - each kernel against its plain PyTorch version on the card
-              (zero_even: bitwise, f32/bf16/f16, NaN at an even index),
-              and its time beside its bound.
+              (zero_even: bitwise, f32/bf16/f16, NaN at an even index;
+              conv2d_int8: bitwise, output and int32 accumulators, on the
+              53 convs of the R-50 body at batch 4, a ragged and a grouped
+              per-channel shape), and its time beside its bound
+              (conv2d_int8: every body conv at batch 64, beside cuDNN's
+              bf16 conv and, for the 1x1s, torch._int_mm; the per-conv
+              table goes to build/chip_smoke_logs/kernel_int8.json).
 3. extract  - the flagship model (R-50, 384x128, bf16 body, 3968-d) with
               seeded random weights embeds a Market-1501-sized gallery
               (19,732 uint8 decodes at 128x64) in batches of 64 through
@@ -98,12 +103,33 @@ is non-zero:
               /remove, SIGTERM with a save, a --load-index restart and
               ``tools.retrieve`` answering as before.
 
+The model variants (after remat, gn_agree; after test_net, the rest, on
+the same synthetic Market set):
+24. gn_agree - a full-width GroupNorm R-50 (MODEL.USE_GN) on 4 images:
+              card f32 against CPU f32; its int8 body (per-channel input
+              scales) once through conv2d_int8 (53 launches).
+25. train_fpn - ``train_model`` on the FPN2 yaml, 2 epochs x 93 steps
+              (128 rows through the head, two levels): loss finite and
+              falling, the FPN weights 4-d OIHW in the pkl and bitwise
+              through it.
+26. test_fpn - ``run_inference`` with train_fpn's pkl, gated as test_net.
+27. fold    - test_net's pkl on 2,048 gallery decodes: BN-folded against
+              unfolded extraction (f32 within 1e-4, bf16 cosine >= 0.999)
+              and the bf16 rates of both, timed in turns.
+28. test_int8 - ``run_inference`` on the _int8 yaml with test_net's pkl:
+              calibrated on 256 images, 53 conv2d_int8 launches a batch,
+              int8 against bf16 embeddings of the same images (cosine >=
+              0.99), both mAPs and extraction rates.
+29. export  - ``python -m pps_tpu_torch.tools.export_model`` (--fold-bn,
+              --int8) in child processes; each .pt2 reloaded and run
+              against eager extraction within 1e-6.
+
 The driver phases' own output (json_stats and Single Query lines, logs)
 goes to build/chip_smoke_logs/<phase>.log.  Then a {"kernels": [...]}
-line (launches counted per phase while the main path, phases 3, 5, 7,
-10-12 and 15-23, ran), the nvidia-smi line, and last {"ok": true,
-"device": {...}}.  Without a CUDA device it exits non-zero and prints no
-result.
+line (launches counted per phase and kernel while the main path, phases
+3, 5, 7, 10-12, 15-23 and 25-29, ran), the nvidia-smi line, and last
+{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
+and prints no result.
 """
 
 import contextlib
@@ -204,6 +230,32 @@ DIST2_ATOL = 1e-4                 # index vs brute force, on squared
 #   sides sum 3968 float32 products in other orders (other GEMM shapes,
 #   the int8 hi/lo split), typically ~sqrt(3968) * 2^-24 * 2 ~ 1e-5;
 #   compared as d, a self-match (d ~ 1e-2) would magnify that 50x
+
+# the model variants: FPN, BN folding, int8, export, GroupNorm
+FPN2_YAML = os.path.join(ROOT, 'configs', 'market1501',
+                         'pps_crm_triplet_R-50-FPN2_1x.yaml')
+INT8_YAML = os.path.join(ROOT, 'configs', 'market1501',
+                         'pps_crm_triplet_R-50_1x_int8.yaml')
+FPN_EPOCHS = 2                      # of the yaml's 121
+INT8_PEAK_OPS = 1979e12             # H100 SXM dense int8 tensor-core peak
+INT8_CHECK_BATCH = 4                # the 53 body convs checked bitwise,
+#   here, at BATCH (the extraction batch; its tail is padded to BATCH) and
+#   at INT8_TAIL rows
+INT8_TAIL = (QUERIES + GALLERY) % BATCH  # the real rows of the tail batch
+INT8_CONVS_PER_BATCH = 53           # conv1 + 16 x 3 + 4 branch1
+FOLD_IMAGES = 2048                  # gallery decodes through the fold
+FOLD_F32_ATOL = 1e-4                # folded vs unfolded, both f32: the BN
+#   affine moved into the weights rounds differently through 53 convs (the
+#   port on the CPU at 96x32: within 1e-5)
+FOLD_BF16_MIN_COS = 0.999           # folded vs unfolded, both bf16: the
+#   folded weights round to bf16 themselves, and the BN no longer runs in
+#   f32 between conv and cast
+INT8_MIN_COS = 0.99                 # int8 vs bf16 embeddings of the same
+#   images: per-tensor input scales over 53 convs (pps_tpu reports
+#   ~0.9996 at its yaml on trained weights)
+EXPORT_ATOL = 1e-6                  # a reloaded .pt2 vs eager extraction:
+#   the same weights and the same kernels
+GN_CHECK_IMAGES = 4
 
 
 def emit(phase, **kw):
@@ -1051,9 +1103,12 @@ def phase_resume(dev, out_root, decode, cont, cont_final):
          final_worst_rel_diff=worst, log=log)
 
 
-def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec):
+def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec,
+                   name='test_net'):
     """run_inference with model_final.pkl on the Market-sized test split;
-    the features, the card's metrics and features.pkl held."""
+    the features, the card's metrics and features.pkl held.  ``name``
+    names the phase (its output directory, log and line).  Returns the
+    features, the roidb, and the run's mAP and extraction rate."""
     import torch
     import yaml
     from pps_tpu_torch.engine import test as test_lib
@@ -1065,7 +1120,7 @@ def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec):
     from pps_tpu_torch.parallel.eval_step import (make_extract_fn,
                                                   extract_features)
     from pps_tpu_torch.utils.io import load_object
-    out_dir = os.path.join(out_root, 'test_net')
+    out_dir = os.path.join(out_root, name)
     seen = {}
     extract, evaluate = (test_lib.extract_dataset_features,
                          test_lib.evaluate_dataset)
@@ -1082,7 +1137,7 @@ def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec):
     test_lib.extract_dataset_features = timed('extract', extract)
     test_lib.evaluate_dataset = timed('eval', evaluate)
     try:
-        with phase_log('test_net') as log:
+        with phase_log(name) as log:
             t0 = time.perf_counter()
             results = test_lib.run_inference(cfg, weights_file=final_pkl,
                                              output_dir=out_dir,
@@ -1147,7 +1202,7 @@ def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec):
     if not np.array_equal(pkl['all_feats'], feats) or \
             plain['MODEL']['NUM_CLASSES'] != cfg.MODEL.NUM_CLASSES:
         raise AssertionError('features.pkl does not hold the run')
-    emit('test_net', queries=int(q.sum()), gallery=int(g.sum()),
+    emit(name, queries=int(q.sum()), gallery=int(g.sum()),
          single_query=single[0], mAP=m_card, cmc1=float(c_card[0]),
          extract_s=extract_s, extract_imgs_per_s=n / extract_s,
          decode_only_imgs_per_s=n / decode_s,
@@ -1158,7 +1213,500 @@ def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec):
          cmc_equal=True, card_metrics_s=card_s, numpy_metrics_s=numpy_s,
          features_pkl_mb=os.path.getsize(os.path.join(
              out_dir, 'features.pkl')) / 1e6, log=log)
-    return feats, roidb
+    return feats, roidb, {'mAP': m_card, 'extract_imgs_per_s': n / extract_s}
+
+
+# ---------------------------------------------------------------------------
+# the model variants: the int8 kernel, FPN, BN folding, int8 PTQ, export,
+# GroupNorm
+# ---------------------------------------------------------------------------
+
+
+def body_convs(spec, h, w):
+    """The convs of a ResNet body at input h x w, in order, as (name, c_in,
+    h, w, c_out, k, stride, dilation, groups) with each conv's input
+    size."""
+    out = [('conv1', 3, h, w, 64, 7, 2, 1, 1)]
+    h, w = -(-h // 4), -(-w // 4)  # conv1 /2, then the 3x3/2 max pool
+    dim_in = 64
+    for stage, n, dim_out, inner, stride, dil in spec['stages']:
+        for i in range(n):
+            s = stride if i == 0 else 1
+            s1, s3 = (s, 1) if spec['stride_1x1'] else (1, s)
+            p = '{}_{}'.format(stage, i)
+            if i == 0 and dim_in != dim_out:
+                out.append((p + '_branch1', dim_in, h, w, dim_out, 1, s, 1,
+                            1))
+            out.append((p + '_branch2a', dim_in, h, w, inner, 1, s1, 1, 1))
+            h, w = -(-h // s1), -(-w // s1)
+            out.append((p + '_branch2b', inner, h, w, inner, 3, s3, dil,
+                        spec['num_groups']))
+            h, w = -(-h // s3), -(-w // s3)
+            out.append((p + '_branch2c', inner, h, w, dim_out, 1, 1, 1, 1))
+            dim_in = dim_out
+    return out
+
+
+def int8_inputs(gen, n, conv, dev, per_channel=False):
+    """Seeded inputs of one int8 conv on the card: x float32 for the stem,
+    bf16 for the body, NHWC memory; OHWI int8 weights; scales in the
+    ranges a calibrated body has."""
+    import torch
+    _, cin, h, w, cout, k, _, _, groups = conv
+    dtype = torch.float32 if cin == 3 else torch.bfloat16
+    x = (torch.randn(n, h, w, cin, generator=gen, device=dev) * 2).to(
+        dtype).permute(0, 3, 1, 2)
+    wq = torch.randint(-127, 128, (cout, k, k, cin // groups), generator=gen,
+                       device=dev, dtype=torch.int8)
+    xinv = (torch.rand(cin, generator=gen, device=dev) * 40 + 10
+            if per_channel else torch.full((), 40.0, device=dev))
+    osc = torch.rand(cout, generator=gen, device=dev) * 1e-4 + 1e-5
+    fb = torch.randn(cout, generator=gen, device=dev) * 0.1
+    return x, wq, xinv, osc, fb
+
+
+def int8_bound(conv, n, x, out_bytes):
+    """(ops s, bytes s) of one int8 conv: its products over the dense int8
+    peak, and its input (in its dtype), int8 weights, scales and output
+    over the memory rate."""
+    _, cin, h, w, cout, k, s, _, groups = conv
+    ho, wo = -(-h // s), -(-w // s)
+    ops = 2.0 * n * ho * wo * k * k * (cin // groups) * cout
+    nbytes = (x.numel() * x.element_size() + cout * k * k * cin // groups
+              + 4 * (2 * cout + cin) + n * ho * wo * cout * out_bytes)
+    return ops / INT8_PEAK_OPS, nbytes / HBM_BYTES_PER_S
+
+
+def check_int8(args, conv):
+    """conv2d_int8 against its plain version on one conv's inputs, bitwise:
+    the bf16 output and the int32 accumulators."""
+    import torch
+    from pps_tpu_torch.kernels import conv2d_int8 as ck
+    _, _, _, _, _, _, s, d, g = conv
+    for acc in (True, False):
+        got = ck.conv2d_int8(*args, stride=s, dilation=d, groups=g,
+                             out_dtype=torch.bfloat16, accumulators=acc)
+        want = ck.conv2d_int8_plain(*args, stride=s, dilation=d, groups=g,
+                                    out_dtype=torch.bfloat16,
+                                    accumulators=acc)
+        torch.cuda.synchronize()
+        bits = torch.int32 if acc else torch.int16
+        if not torch.equal(got.view(bits), want.view(bits)):
+            raise AssertionError('conv2d_int8 != plain: {} n={} {}'.format(
+                conv, args[0].shape[0], 'acc' if acc else 'bf16'))
+
+
+def phase_kernel_int8(dev):
+    """conv2d_int8 against its plain version on the card, bitwise (the
+    bf16 output and the int32 accumulators), on the 53 convs of the R-50
+    body at batch 4, BATCH (the main path's) and INT8_TAIL, a ragged shape
+    and a grouped one with per-channel scales; every body conv timed at
+    BATCH beside its bound, its plain version, cuDNN's bf16 conv and (1x1
+    convs) torch._int_mm."""
+    import torch
+    import torch.nn.functional as F
+    from pps_tpu_torch.flagship import flagship_cfg
+    from pps_tpu_torch.kernels import conv2d_int8 as ck
+    from pps_tpu_torch.models import resnet as resnet_lib
+    cfg = flagship_cfg()
+    w_in, h_in = cfg.REID.SCALE
+    convs = body_convs(resnet_lib.resnet_spec(cfg, 50), h_in, w_in)
+    if len(convs) != INT8_CONVS_PER_BATCH:
+        raise AssertionError('{} body convs'.format(len(convs)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(INT8_CHECK_BATCH, c, False) for c in convs] + [
+        (3, ('ragged', 64, 13, 7, 70, 3, 1, 1, 1), False),
+        (2, ('grouped', 64, 12, 10, 64, 3, 1, 1, 2), True)]
+    for n, conv, per_channel in cases:
+        check_int8(int8_inputs(gen, n, conv, dev, per_channel), conv)
+    rows = []
+    for conv in convs:
+        args = int8_inputs(gen, BATCH, conv, dev)
+        x, wq = args[0], args[1]
+        check_int8(args, conv)
+        check_int8((x[:INT8_TAIL],) + args[1:], conv)
+        _, cin, h, w, cout, k, s, d, g = conv
+        kw = dict(stride=s, dilation=d, groups=g, out_dtype=torch.bfloat16)
+        ms = cuda_ms(lambda: ck.conv2d_int8(*args, **kw), iters=10,
+                     warmup=2)
+        plain_ms = cuda_ms(lambda: ck.conv2d_int8_plain(*args, **kw),
+                           iters=1, warmup=1)
+        wb = torch.randn(cout, cin // g, k, k, generator=gen, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        xb = x.to(torch.bfloat16)
+        pad = ((k - 1) * d) // 2
+        cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=s, padding=pad,
+                                            dilation=d, groups=g),
+                           iters=10, warmup=2)
+        int_mm_ms = None
+        if k == 1:  # the same int32 product as [N*Ho*Wo, C_in] x [C_in, C_out]
+            ho, wo = -(-h // s), -(-w // s)
+            a = torch.randint(-127, 128, (BATCH * ho * wo, cin),
+                              generator=gen, device=dev, dtype=torch.int8)
+            b = wq.reshape(cout, cin).t()
+            try:
+                int_mm_ms = cuda_ms(lambda: torch._int_mm(a, b), iters=10,
+                                    warmup=2)
+            except RuntimeError as e:  # a yardstick only: report, go on
+                int_mm_ms = 'refused: {}'.format(str(e)[:120])
+        ops_s, bytes_s = int8_bound(conv, BATCH, x, 2)
+        rows.append({'conv': conv[0], 'shape': list(conv[1:]), 'ms': ms,
+                     'plain_ms': plain_ms, 'cudnn_bf16_ms': cudnn_ms,
+                     'int_mm_ms': int_mm_ms, 'ops_s': ops_s,
+                     'bytes_s': bytes_s,
+                     'bound_ms': max(ops_s, bytes_s) * 1e3})
+    path = os.path.join(ROOT, 'build', 'chip_smoke_logs',
+                        'kernel_int8.json')
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, 'w') as f:
+        json.dump(rows, f, indent=1)
+    named = {r['conv']: r for r in rows}
+    timed = {'conv1 (7x7/2, 3->64, f32 in)': named['conv1'],
+             'res2 3x3 64->64 at 96x32': named['res2_0_branch2b'],
+             'res4 1x1 1024->256 at 24x8': named['res4_1_branch2a']}
+    ops_s = sum(r['ops_s'] for r in rows)
+    bytes_s = sum(r['bytes_s'] for r in rows)
+    body = {'ms': sum(r['ms'] for r in rows),
+            'plain_ms': sum(r['plain_ms'] for r in rows),
+            'cudnn_bf16_ms': sum(r['cudnn_bf16_ms'] for r in rows),
+            'bound_ms': max(ops_s, bytes_s) * 1e3,
+            'bound_by': 'operations' if ops_s >= bytes_s else 'bytes',
+            'int_mm_ms_1x1': sum(r['int_mm_ms'] for r in rows
+                                 if isinstance(r['int_mm_ms'], float)),
+            'kernel_ms_1x1': sum(r['ms'] for r in rows
+                                 if isinstance(r['int_mm_ms'], float))}
+    checks = 2 * (len(cases) + 2 * len(convs))  # output and accumulators
+    emit('kernel', name='conv2d_int8', cases=checks,
+         bitwise_equal=True, max_abs_err=0.0,
+         check_batches=[INT8_CHECK_BATCH, BATCH, INT8_TAIL],
+         time_batch=BATCH, timed_shapes=timed,
+         body_per_batch=body, per_conv_log=path)
+    return {'name': 'conv2d_int8', 'route': 'cuda',
+            'source': 'pps_tpu_torch/csrc/conv2d_int8.cu',
+            'replaces': 'pps_tpu/models/resnet.py:205',
+            'replaces_kind': 'XLA int8 conv (conv2d_int8), not a Pallas '
+                             'kernel',
+            'max_abs_err': 0.0, 'ms': body['ms'],
+            'plain_ms': body['plain_ms'], 'bound_ms': body['bound_ms'],
+            'bound_by': body['bound_by'], 'library_ms': None,
+            'shapes': 'the 53 convs of the R-50 body at batch 64, 384x128',
+            'on_main_path': True}
+
+
+def variant_cfg(yaml_path, out_dir, epochs=None):
+    """A yaml cut for the drivers: no bootstrap weights, OUTPUT_DIR, and for
+    training ``epochs`` epochs with the triplet loss from epoch 1 and a
+    snapshot per epoch."""
+    from pps_tpu_torch.config import (cfg, reset_cfg, merge_cfg_from_file,
+                                      merge_cfg_from_list,
+                                      assert_and_infer_cfg)
+    reset_cfg()
+    merge_cfg_from_file(yaml_path)
+    opts = ['TRAIN.WEIGHTS', "''", 'OUTPUT_DIR', out_dir]
+    if epochs is not None:
+        opts += ['SOLVER.MAX_ITER', str(epochs), 'SOLVER.STEPS', '[0, 2]',
+                 'REID.TRIPLET_LOSS_START', '0', 'TRAIN.SNAPSHOT_ITERS', '1']
+    merge_cfg_from_list(opts)
+    assert_and_infer_cfg()
+    return cfg
+
+
+def phase_train_fpn(dev, out_root, decode):
+    """train_model on the FPN2 yaml over the synthetic Market split: the
+    loss falls, the FPN weights survive the pkl (4-d OIHW in the file)."""
+    import torch
+    from pps_tpu_torch.engine import checkpoint as ckpt_lib
+    from pps_tpu_torch.engine.train import train_model
+    from pps_tpu_torch.models.model import build_model
+    from pps_tpu_torch.utils.io import load_object
+    cfg = variant_cfg(FPN2_YAML, os.path.join(out_root, 'train_fpn'),
+                      FPN_EPOCHS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with phase_log('train_fpn') as log, StepRecorder() as rec:
+        t0 = time.perf_counter()
+        ckpts = train_model(cfg, decode_fn=decode, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    losses = torch.stack(rec.losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError('non-finite FPN train loss')
+    ipe = len(rec.plans[0])
+    n = min(10, ipe // 2)  # epoch 0 alone: one loss_scale_factor
+    first, last = float(losses[:n].mean()), float(losses[ipe - n:ipe].mean())
+    if not last < first:
+        raise AssertionError('FPN loss did not fall: {} -> {}'.format(
+            first, last))
+    blobs = load_object(ckpts['final'])['blobs']
+    fpn_w = sorted(k for k in blobs if k.startswith('fpn_')
+                   and k.endswith('_w'))
+    params = rec.state['params']
+    if len(fpn_w) != 2:
+        raise AssertionError('FPN weights in the pkl: {}'.format(fpn_w))
+    for k in fpn_w:
+        want = (cfg.FPN.DIM, params[k].shape[0], 1, 1)
+        if blobs[k].shape != want:
+            raise AssertionError('{} is {} in the pkl'.format(
+                k, blobs[k].shape))
+    model = build_model(cfg, device=dev)
+    p, s = model.init(torch.Generator().manual_seed(0))
+    p, s, _ = ckpt_lib.load_checkpoint(ckpts['final'], model, p, s)
+    for k in params:
+        if not torch.equal(p[k], params[k]):
+            raise AssertionError('{} changed through the pkl'.format(k))
+    for k in rec.state['state']:
+        if not torch.equal(s[k], rec.state['state'][k]):
+            raise AssertionError('{} changed through the pkl'.format(k))
+    step_ms = [a.elapsed_time(b) for a, b in zip(rec.events[:-1],
+                                                 rec.events[1:])]
+    emit('train_fpn', config=os.path.relpath(FPN2_YAML, ROOT),
+         levels=cfg.REID.FPN_NUM, steps_per_epoch=ipe, epochs=FPN_EPOCHS,
+         steps=len(losses), batch=BATCH, head_batch=BATCH * cfg.REID.FPN_NUM,
+         ms_per_step=float(np.median(step_ms)),
+         ms_p90=float(np.percentile(step_ms, 90)), wall_s=seconds,
+         loss_first=first, loss_last=last, loss_mean_of=n,
+         fpn_blobs={k: list(blobs[k].shape) for k in fpn_w},
+         pkl_round_trip_bitwise=True,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, log=log)
+    return cfg, rec, ckpts['final']
+
+
+def phase_fold(dev, final_pkl, decode):
+    """test_net's trained Market pkl on FOLD_IMAGES gallery decodes at batch
+    64: extraction BN-folded against unfolded, float32 and bf16; the
+    bf16 rates timed in turns (plain, folded, folded, plain)."""
+    import torch
+    from pps_tpu_torch.engine import checkpoint as ckpt_lib
+    from pps_tpu_torch.engine import test as test_lib
+    from pps_tpu_torch.models.folding import fold_conv_bn
+    from pps_tpu_torch.models.model import build_model
+    from pps_tpu_torch.parallel.eval_step import (make_extract_fn,
+                                                  extract_features)
+    roidb = [e for e in test_lib.roidb_for_test('market1501_test')
+             if e['mark'] == 1][:FOLD_IMAGES]
+    stack = test_lib.decode_uint8_stack(roidb, decode_fn=decode)
+    out = {}
+    for dtype in ('float32', 'bfloat16'):
+        cfg = variant_cfg(FLAGSHIP_YAML, os.path.join(ROOT, 'build'))
+        cfg.immutable(False)
+        cfg.MODEL.DTYPE = dtype
+        cfg.immutable(True)
+        model = build_model(cfg, device=dev)
+        p, s = model.init(torch.Generator().manual_seed(0))
+        p, s, _ = ckpt_lib.load_checkpoint(final_pkl, model, p, s)
+        folded = fold_conv_bn(p, s)
+        w, h = cfg.REID.SCALE
+        fn = make_extract_fn(model, device_preproc=(cfg.PIXEL_MEANS, (h, w)),
+                             device=dev)
+        trees = {'plain': p, 'folded': folded}
+        feats, secs = {}, {'plain': [], 'folded': []}
+        for kind in ('plain', 'folded', 'folded', 'plain'):
+            extract_features(fn, trees[kind], s, stack[:BATCH], BATCH)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            feats[kind] = extract_features(fn, trees[kind], s, stack, BATCH)
+            end.record()
+            end.synchronize()
+            secs[kind].append(start.elapsed_time(end) / 1e3)
+        out[dtype] = (feats, secs)
+    (f32, secs32), (b16, secs16) = out['float32'], out['bfloat16']
+    err = float(np.max(np.abs(f32['folded'] - f32['plain'])))
+    if err > FOLD_F32_ATOL:
+        raise AssertionError('folded vs unfolded f32: {}'.format(err))
+    cos = np.sum(b16['folded'] * b16['plain'], axis=1)
+    if cos.min() < FOLD_BF16_MIN_COS:
+        raise AssertionError('folded vs unfolded bf16 cosine {}'.format(
+            float(cos.min())))
+    n = len(roidb)
+    emit('fold', images=n, batch=BATCH, f32_max_abs=err,
+         f32_atol=FOLD_F32_ATOL, bf16_min_cos=float(cos.min()),
+         bf16_mean_cos=float(cos.mean()), min_cos=FOLD_BF16_MIN_COS,
+         bf16_imgs_per_s={k: [n / t for t in v] for k, v in secs16.items()},
+         f32_imgs_per_s={k: [n / t for t in v] for k, v in secs32.items()})
+
+
+def phase_test_int8(dev, out_root, final_pkl, decode, bf16_feats, bf16_run):
+    """run_inference on the _int8 yaml with test_net's pkl: calibrated on
+    TPU.INT8_CALIB_IMAGES test images, every extraction batch through 53
+    int8 kernel launches, the embeddings close to the bf16 run's.
+    ``bf16_run`` holds test_net's mAP and extraction rate, reported
+    beside the int8 run's."""
+    import torch
+    from pps_tpu_torch.engine import test as test_lib
+    from pps_tpu_torch.kernels import conv2d_int8 as ck
+    out_dir = os.path.join(out_root, 'test_int8')
+    cfg = variant_cfg(INT8_YAML, out_dir)
+    seen = {}
+    quantize, extract = (test_lib.quantize_params_for_dataset,
+                         test_lib.extract_dataset_features)
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seen[name] = (out, time.perf_counter() - t0)
+            return out
+        return run
+    test_lib.quantize_params_for_dataset = timed('calibrate', quantize)
+    test_lib.extract_dataset_features = timed('extract', extract)
+    before = ck.launches
+    try:
+        with phase_log('test_int8') as log:
+            results = test_lib.run_inference(cfg, weights_file=final_pkl,
+                                             output_dir=out_dir,
+                                             decode_fn=decode, device=dev)
+    finally:
+        test_lib.quantize_params_for_dataset = quantize
+        test_lib.extract_dataset_features = extract
+    feats, extract_s = seen['extract']
+    n = len(feats)
+    batches = -(-n // BATCH)
+    launches = ck.launches - before
+    if launches != INT8_CONVS_PER_BATCH * batches:
+        raise AssertionError('conv2d_int8 launched {} times for {} '
+                             'batches'.format(launches, batches))
+    if feats.shape != bf16_feats.shape or not np.isfinite(feats).all():
+        raise AssertionError('int8 features {}'.format(feats.shape))
+    cos = np.sum(feats * bf16_feats, axis=1) / (
+        np.linalg.norm(feats, axis=1) * np.linalg.norm(bf16_feats, axis=1))
+    if cos.min() < INT8_MIN_COS:
+        raise AssertionError('int8 vs bf16 cosine {}'.format(
+            float(cos.min())))
+    single = [ln for ln in _read(log) if ln.startswith('Single Query:')]
+    print(single[0], flush=True)
+    qp = seen['calibrate'][0]
+    emit('test_int8', config=os.path.relpath(INT8_YAML, ROOT), images=n,
+         batches=batches, conv2d_int8_launches=launches,
+         quantized_convs=sum(k.endswith('_wq') for k in qp),
+         calib_images=cfg.TPU.INT8_CALIB_IMAGES,
+         calibrate_s=seen['calibrate'][1],
+         int8_vs_bf16_min_cos=float(cos.min()),
+         int8_vs_bf16_mean_cos=float(cos.mean()), min_cos=INT8_MIN_COS,
+         single_query=single[0],
+         map_int8=results['market1501_test']['single']['mAP'],
+         map_bf16=bf16_run['mAP'],
+         extract_imgs_per_s_int8=n / extract_s,
+         extract_imgs_per_s_bf16=bf16_run['extract_imgs_per_s'],
+         log=log)
+
+
+def phase_export(dev, out_root, final_pkl, decode):
+    """tools.export_model in two child processes at once (--fold-bn, and
+    --int8 on a .npy of preprocessed test images): each .pt2 reloaded here
+    and run against eager extraction with the weights it holds."""
+    import torch
+    from pps_tpu_torch.engine import test as test_lib
+    from pps_tpu_torch.models.model import build_model
+    from pps_tpu_torch.tools.export_model import split_state
+    work = os.path.join(out_root, 'export')
+    os.makedirs(work, exist_ok=True)
+    cfg = variant_cfg(FLAGSHIP_YAML, work)
+    roidb = test_lib.roidb_for_test('market1501_test')[:BATCH]
+    calib = test_lib.preprocess_images(roidb, cfg, decode_fn=decode)
+    calib_npy = os.path.join(work, 'calib.npy')
+    np.save(calib_npy, calib)
+    children = {}
+    t0 = time.perf_counter()
+    for mode, flags in (('fold', ['--fold-bn']),
+                        ('int8', ['--int8', '--calib-npy', calib_npy])):
+        name = 'export_' + mode
+        log = open(os.path.join(ROOT, 'build', 'chip_smoke_logs',
+                                name + '.log'), 'w')
+        path = os.path.join(work, mode + '.pt2')
+        proc = subprocess.Popen(
+            [sys.executable, '-m', 'pps_tpu_torch.tools.export_model',
+             '--cfg', FLAGSHIP_YAML, '--weights', final_pkl, '--out', path,
+             '--batch', str(BATCH)] + flags + ['TRAIN.WEIGHTS', "''"],
+            cwd=ROOT, env=_child_env(name), stdout=log,
+            stderr=subprocess.STDOUT)
+        children[mode] = (proc, log, path)
+    try:
+        for mode, (proc, log, _) in children.items():
+            if proc.wait(timeout=600) != 0:
+                raise AssertionError('export_model --{} exited {}; see '
+                                     '{}'.format(mode, proc.returncode,
+                                                 log.name))
+    finally:
+        for proc, log, _ in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    child_s = time.perf_counter() - t0
+    model = build_model(cfg, device=dev)
+    x = torch.as_tensor(calib, device=dev)
+    report = {'children_s': child_s}
+    for mode, (_, log, path) in children.items():
+        program = torch.export.load(path)
+        p, s = split_state(program)
+        with torch.no_grad():
+            got = program.module()(x)
+            want = model.extract_features(p, s, x)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if err > EXPORT_ATOL:
+            raise AssertionError('{} program vs eager: {}'.format(mode, err))
+        tool_line = [ln for ln in _read(log.name)
+                     if 'vs eager extraction' in ln]
+        report[mode] = {'max_abs': err, 'mb': os.path.getsize(path) / 1e6,
+                        'quantized_convs': sum(k.endswith('_wq') for k in p),
+                        'tool_check': tool_line[-1] if tool_line else None}
+    emit('export', batch=BATCH, atol=EXPORT_ATOL, **report)
+
+
+def phase_gn_agree(dev):
+    """A full-width GroupNorm R-50 (MODEL.USE_GN, USE_BN False) on 4
+    images: card float32 against CPU float32; its int8 body (per-channel
+    scales) once through the kernel."""
+    import torch
+    from pps_tpu_torch.config import merge_cfg_from_list
+    from pps_tpu_torch.flagship import flagship_cfg
+    from pps_tpu_torch.kernels import conv2d_int8 as ck
+    from pps_tpu_torch.models.model import build_model
+    from pps_tpu_torch.models.quantize import quantize_for_eval
+    cfg = flagship_cfg(dtype='float32')
+    cfg.immutable(False)
+    merge_cfg_from_list(['MODEL.USE_GN', 'True', 'MODEL.USE_BN', 'False'])
+    cfg.immutable(True)
+    w, h = cfg.REID.SCALE
+    rng = np.random.RandomState(0)
+    x = rng.randn(GN_CHECK_IMAGES, h, w, 3).astype(np.float32) * 50
+    out = {}
+    for where in ('cpu', dev):
+        model = build_model(cfg, device=where)
+        p, s = model.init(torch.Generator().manual_seed(0))
+        # GN scales and biases off their init, drawn in sorted key order
+        rng = np.random.RandomState(1)
+        for k in sorted(p):
+            if k.endswith('_gn_s') or k.endswith('_gn_b'):
+                v = (rng.rand(*p[k].shape) + 0.5 if k.endswith('_s')
+                     else rng.randn(*p[k].shape) * 0.1)
+                p[k] = torch.tensor(v.astype(np.float32), device=where)
+        out[str(where)] = model.extract_features(
+            p, s, torch.tensor(x, device=where)).cpu().numpy()
+    cpu, card = out['cpu'], out[str(dev)]
+    err = float(np.max(np.abs(card - cpu)))
+    if not np.allclose(card, cpu, rtol=F32_RTOL, atol=F32_ATOL):
+        raise AssertionError('GN card f32 != cpu f32: max abs {}'.format(
+            err))
+    qp = quantize_for_eval(model, p, s, x)
+    before = ck.launches
+    q = model.extract_features(qp, s, torch.tensor(x, device=dev))
+    torch.cuda.synchronize()
+    launches = ck.launches - before
+    if launches != INT8_CONVS_PER_BATCH or \
+            not torch.isfinite(q).all():
+        raise AssertionError('GN int8: {} launches'.format(launches))
+    q = q.cpu().numpy()
+    cos = np.sum(q * card, axis=1) / (np.linalg.norm(q, axis=1) *
+                                      np.linalg.norm(card, axis=1))
+    emit('gn_agree', images=GN_CHECK_IMAGES, f32_card_vs_cpu_max_abs=err,
+         rtol=F32_RTOL, atol=F32_ATOL, int8_launches=launches,
+         int8_xinv_per_channel=list(qp['res3_0_branch2b_xinv'].shape),
+         int8_vs_f32_cos=cos.tolist())
 
 
 # ---------------------------------------------------------------------------
@@ -2435,30 +2983,31 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
         return 2
+    from pps_tpu_torch import kernels as kernels_lib
     from pps_tpu_torch.device import resolve_device
-    from pps_tpu_torch.kernels import zero_even as ze
     dev = resolve_device('cuda')
 
     phase_build()
-    kernels = [phase_kernel(dev)]
+    kernels = [phase_kernel(dev), phase_kernel_int8(dev)]
     gallery = make_gallery()
 
     # each phase of the main path runs through driven(): the launch counts
-    # are zeroed just before it and read just after, per phase; a child
-    # process of the port (test_net, the daemon, retrieve) starts at 0 and
-    # writes its own counts at exit, which are added to its phase's
+    # are zeroed just before it and read just after, per phase and kernel;
+    # a child process of the port (test_net, the daemon, retrieve, the
+    # export tool) starts at 0 and writes its own counts at exit, which are
+    # added to its phase's
     by_phase, in_children = {}, {}
 
     def driven(name, fn, *args):
-        ze.launches = 0
+        kernels_lib.reset_launch_counts()
         _CHILDREN.clear()
         out = fn(*args)
         children = child_launches()
-        by_phase[name] = ze.launches + sum(c['zero_even']
-                                           for c in children.values())
+        counts = kernels_lib.launch_counts()
+        by_phase[name] = {k: v + sum(c.get(k, 0) for c in children.values())
+                          for k, v in counts.items()}
         if children:
-            in_children[name] = {c: v['zero_even']
-                                 for c, v in children.items()}
+            in_children[name] = children
         torch.cuda.empty_cache()
         return out
 
@@ -2481,6 +3030,8 @@ def main():
     torch.cuda.empty_cache()
     phase_remat(dev, gallery)
     torch.cuda.empty_cache()
+    phase_gn_agree(dev)
+    torch.cuda.empty_cache()
 
     # main path, part 3: the train -> test drivers
     out_root = os.path.join(ROOT, 'build', 'chip_smoke_run')
@@ -2493,11 +3044,26 @@ def main():
     cfg, rec, final_pkl = driven('train_net', phase_train_net, dev, out_root,
                                  decode, bare_ms)
     driven('resume', phase_resume, dev, out_root, decode, rec, final_pkl)
-    market_feats, market_roidb = driven('test_net', phase_test_net, dev,
-                                        out_root, cfg, final_pkl, decode, rec)
+    market_feats, market_roidb, market_run = driven(
+        'test_net', phase_test_net, dev, out_root, cfg, final_pkl, decode,
+        rec)
     market_pkl = os.path.join(keep, 'market_model_final.pkl')
     shutil.copyfile(final_pkl, market_pkl)  # for the serving daemon
     del rec, gallery
+    torch.cuda.empty_cache()
+
+    # main path, part 3b: the model variants on the same synthetic Market
+    # set: FPN through the drivers, BN folding, int8, the export tool
+    fpn_cfg, fpn_rec, fpn_pkl = driven('train_fpn', phase_train_fpn, dev,
+                                       out_root, decode)
+    driven('test_fpn', phase_test_net, dev, out_root, fpn_cfg, fpn_pkl,
+           decode, fpn_rec, 'test_fpn')
+    del fpn_rec
+    torch.cuda.empty_cache()
+    driven('fold', phase_fold, dev, market_pkl, decode)
+    driven('test_int8', phase_test_int8, dev, out_root, market_pkl, decode,
+           market_feats, market_run)
+    driven('export', phase_export, dev, out_root, market_pkl, decode)
     shutil.rmtree(out_root, ignore_errors=True)  # ~2.5 GB of checkpoints
     torch.cuda.empty_cache()
 
@@ -2543,10 +3109,12 @@ def main():
         shutil.rmtree(d, ignore_errors=True)
 
     for k in kernels:
-        # zero_even is the only kernel, so every count is its own
-        k['launches'] = sum(by_phase.values())
-        k['launches_by_phase'] = by_phase
-        k['launches_in_child_processes'] = in_children
+        name = k['name']
+        k['launches_by_phase'] = {p: v[name] for p, v in by_phase.items()}
+        k['launches'] = sum(k['launches_by_phase'].values())
+        k['launches_in_child_processes'] = {
+            p: {c: v.get(name, 0) for c, v in ch.items()}
+            for p, ch in in_children.items()}
         if k['on_main_path'] and k['launches'] == 0:
             raise AssertionError('{} never launched on the main path'.format(
                 k['name']))

@@ -8,12 +8,16 @@ holding params, BN running stats (``*_bn_riv`` stores plain variance) and
 only in the stacked head:
 
   conv weights       OIHW in the port and in the pkl (no transpose)
+  FPN 1x1 weights    [C_in, C_out] <-> [C_out, C_in, 1, 1]
   head combo params  '{combo_prefix}_conv_w' [D,C,1,1] <-> stacked [R][C,D]
   FC weights         [K, D] <-> stacked [R, D, K]; CRM [K, D] <-> [D, K]
 
-``params_from_numpy`` takes the JAX package's flat dicts (HWIO convs), and
-optionally its optimizer state, and places them on the model's device;
-the tests carry identical weights across with it.  ``*_momentum`` blobs
+A ConvGN head carries ``{combo_prefix}_gn_s/_b`` and no running stats.
+
+``params_from_numpy`` takes the JAX package's flat dicts (HWIO convs,
+int8 HWIO ``*_wq`` of a quantized body), and optionally its optimizer
+state, and places them on the model's device; the tests carry identical
+weights across with it.  ``*_momentum`` blobs
 are written from and read into ``opt_state['momentum']``.  Orbax and
 multi-host saving are not ported.
 """
@@ -33,16 +37,19 @@ logger = logging.getLogger(__name__)
 def _head_entries(model):
     """Yield (stacked_key, combo_idx, c2_name, kind) for head params."""
     prefix = model.head_param_prefix
+    norm = '_gn' if model.head_spec.get('use_gn') else '_bn'
     for r, (combo_prefix, _) in enumerate(model.head_spec['combos']):
         yield prefix + '_conv_w', r, combo_prefix + '_conv_w', 'conv1x1_w'
         yield prefix + '_conv_b', r, combo_prefix + '_conv_b', 'vec'
-        yield prefix + '_bn_s', r, combo_prefix + '_bn_s', 'vec'
-        yield prefix + '_bn_b', r, combo_prefix + '_bn_b', 'vec'
+        yield prefix + norm + '_s', r, combo_prefix + norm + '_s', 'vec'
+        yield prefix + norm + '_b', r, combo_prefix + norm + '_b', 'vec'
         yield prefix + '_fc_w', r, combo_prefix + '_fc_w', 'fc_w'
         yield prefix + '_fc_b', r, combo_prefix + '_fc_b', 'vec'
 
 
 def _head_state_entries(model):
+    if model.head_spec.get('use_gn'):
+        return  # a ConvGN head has no running stats
     prefix = model.head_param_prefix
     for r, (combo_prefix, _) in enumerate(model.head_spec['combos']):
         yield prefix + '_bn_rm', r, combo_prefix + '_bn_rm', 'vec'
@@ -52,6 +59,10 @@ def _head_state_entries(model):
 _CRM_W = ('crm_fc8c_w', 'crm_fc8d_w')
 
 
+def _is_fpn_w(name, ndim):
+    return name.startswith('fpn_') and name.endswith('_w') and ndim == 2
+
+
 def _np(t):
     return t.detach().to('cpu', torch.float32).numpy()
 
@@ -59,17 +70,24 @@ def _np(t):
 def params_from_numpy(model, params, state, opt_state=None):
     """The JAX package's (params, state) as numpy -> the port's, as float32
     tensors on ``model.device``.  4-d conv weights go HWIO -> OIHW; the
-    stacked head and the CRM [D, K] weights keep their layout.
+    stacked head, the 2-d FPN weights and the CRM [D, K] weights keep
+    their layout.  A quantized body's int8 ``*_wq`` stay int8 and go HWIO
+    -> OHWI; its ``*_xinv`` stay 0-d or [C_in].
 
     With ``opt_state`` (the JAX package's optimizer state: 'momentum' and,
     for the 'iter' flavor, 'acmgrad' and 'count') the result is a triple
     (params, state, opt_state); the param-shaped trees convert as params
     do and the step count becomes an int32 0-d tensor."""
     def convert(name, a):
-        a = np.asarray(a, np.float32)
-        if a.ndim == 4 and name.endswith('_w'):
-            a = a.transpose(3, 2, 0, 1)
-        return torch.tensor(np.ascontiguousarray(a), device=model.device)
+        if name.endswith('_wq'):
+            a = np.asarray(a, np.int8).transpose(3, 0, 1, 2)
+        else:
+            a = np.asarray(a, np.float32)
+            if a.ndim == 4 and name.endswith('_w'):
+                a = a.transpose(3, 2, 0, 1)
+        # (ascontiguousarray would make a 0-d xinv 1-d)
+        return torch.tensor(np.ascontiguousarray(a) if a.ndim else a,
+                            device=model.device)
 
     def tree(t):
         return {k: convert(k, v) for k, v in t.items()}
@@ -90,7 +108,11 @@ def params_to_blobs(model, params, state=None):
         if name in head_keys:
             continue  # handled stacked below
         a = _np(t)
-        blobs[name] = np.ascontiguousarray(a.T) if name in _CRM_W else a
+        if name in _CRM_W:
+            a = np.ascontiguousarray(a.T)
+        elif _is_fpn_w(name, a.ndim):
+            a = np.ascontiguousarray(a.T)[:, :, None, None]
+        blobs[name] = a
     for key, r, c2_name, kind in _head_entries(model):
         blobs[c2_name] = _stacked_to_c2(_np(params[key][r]), kind)
     if state is not None:
@@ -165,6 +187,8 @@ def blobs_to_params(model, blobs, params, state):
             _try_set(params, c2_name, arr.T)
             matched.add(c2_name)
         elif c2_name in params:
+            if _is_fpn_w(c2_name, params[c2_name].ndim) and arr.ndim == 4:
+                arr = arr[:, :, 0, 0].T  # [C_out, C_in, 1, 1] -> 2-d
             _try_set(params, c2_name, arr)
             matched.add(c2_name)
         elif c2_name in state:

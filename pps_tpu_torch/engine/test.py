@@ -15,10 +15,11 @@ sample's ``valid_hw``.  Batches outside the uint8 contracts, and
 
 ``REID.RERANK`` adds the re-ranked blocks (on the card with
 ``TPU.DEVICE_EVAL``, else the host C++ engine), and ``REID.VIS`` writes
-rank-list images to ``<output_dir>/vis/``.
+rank-list images to ``<output_dir>/vis/``.  ``TPU.INT8_EVAL`` extracts
+through the int8 body (``models/quantize.py``), calibrated on the first
+``TPU.INT8_CALIB_IMAGES`` test images.
 
-Not ported: int8 extraction (``TPU.INT8_EVAL``, ROADMAP slice 6) and orbax
-weights (slice 8).  Each raises.
+Not ported: orbax weights (ROADMAP slice 8); they raise.
 """
 
 import collections
@@ -249,13 +250,23 @@ def extract_dataset_features(cfg, model, params, state, roidb,
     return feats
 
 
+def quantize_params_for_dataset(cfg, model, params, state, roidb,
+                                decode_fn=None):
+    """int8 PTQ for extraction (``TPU.INT8_EVAL``): calibrates the static
+    input scales on the first ``TPU.INT8_CALIB_IMAGES`` test images
+    (preprocessed on the host: calibration is a one-off) and returns
+    BN-folded, body-quantized params."""
+    from pps_tpu_torch.models.quantize import quantize_for_eval
+    n = max(1, min(int(cfg.TPU.INT8_CALIB_IMAGES), len(roidb)))
+    calib = preprocess_images(roidb[:n], cfg, decode_fn=decode_fn)
+    logger.info('int8 PTQ: calibrating on %d images', n)
+    return quantize_for_eval(model, params, state, calib)
+
+
 def test_net(cfg, weights_file, dataset_name, output_dir=None,
              decode_fn=None, device=None):
     """Extract the features of a test dataset; write features.pkl to
     ``output_dir``.  Returns (features, roidb)."""
-    if cfg.TPU.INT8_EVAL:
-        raise NotImplementedError(
-            'TPU.INT8_EVAL is not ported yet (ROADMAP slice 6: the variants)')
     if weights_file and str(weights_file).endswith('.orbax'):
         raise NotImplementedError(
             'orbax weights are not ported (ROADMAP slice 8: multi-GPU)')
@@ -265,6 +276,9 @@ def test_net(cfg, weights_file, dataset_name, output_dir=None,
         params, state, _ = ckpt_lib.load_checkpoint(weights_file, model,
                                                     params, state)
     roidb = roidb_for_test(dataset_name)
+    if cfg.TPU.INT8_EVAL:
+        params = quantize_params_for_dataset(cfg, model, params, state,
+                                             roidb, decode_fn=decode_fn)
     feats = extract_dataset_features(cfg, model, params, state, roidb,
                                      decode_fn=decode_fn)
     if output_dir:

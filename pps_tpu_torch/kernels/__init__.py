@@ -16,8 +16,16 @@ LAUNCH_COUNTS_ENV = 'PPS_TPU_TORCH_LAUNCH_COUNTS'
 
 def launch_counts():
     """{kernel name: launches counted by its wrapper in this process}."""
-    from pps_tpu_torch.kernels import zero_even
-    return {'zero_even': zero_even.launches}
+    from pps_tpu_torch.kernels import conv2d_int8, zero_even
+    return {'conv2d_int8': conv2d_int8.launches,
+            'zero_even': zero_even.launches}
+
+
+def reset_launch_counts():
+    """Set every kernel's launch count in this process to 0."""
+    from pps_tpu_torch.kernels import conv2d_int8, zero_even
+    conv2d_int8.launches = 0
+    zero_even.launches = 0
 
 
 def write_launch_counts():

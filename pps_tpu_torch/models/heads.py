@@ -11,8 +11,10 @@ same as the JAX package's.
 Train mode: the head BN takes batch stats over axis 0 per combo (biased
 variance, as in the body), dropout draws its keep-mask from an explicit
 ``torch.Generator`` unless the caller hands one in (the tests inject the
-JAX package's mask).  Not ported: the GroupNorm head (ROADMAP slice 6: the
-variants).
+JAX package's mask).  Under ``MODEL.USE_GN`` the head is the reference's
+ConvGN: GroupNorm over D per (sample, combo), no running stats
+(``{p}_gn_s`` / ``{p}_gn_b``).  ``MODEL.USE_BN`` does not reach the head:
+without GN it always carries real BN, as in the JAX package.
 """
 
 import math
@@ -21,11 +23,9 @@ import numpy as np
 import torch
 
 from pps_tpu_torch.models.resnet import (BN_EPSILON, batch_stats,
-                                         running_update)
+                                         get_group_gn, running_update)
 
 DROPOUT = 0.2  # reference reid_heads.py:81-90 (REID.DROPOUT_FEATURE)
-_GN_TODO = ('the GroupNorm head is not ported yet (ROADMAP slice 6: the '
-            'variants)')
 
 
 # ---------------------------------------------------------------------------
@@ -76,8 +76,7 @@ def youtu_combos(strip_num, preprefix='youtu'):
 
 
 def head_spec(cfg, spatial_scale, fpn_level=None):
-    """Static head description from cfg: the JAX ``head_spec`` less the
-    keys only the GN head reads."""
+    """Static head description from cfg (the JAX ``head_spec``)."""
     name = cfg.FAST_RCNN.ROI_BOX_HEAD
     strip_num = cfg.REID.BPM_STRIP_NUM
     scale_h = cfg.REID.SCALE[1]
@@ -108,7 +107,16 @@ def head_spec(cfg, spatial_scale, fpn_level=None):
         'num_logits': cfg.MODEL.NUM_CLASSES - 1,
         'dropout': DROPOUT if cfg.REID.DROPOUT_FEATURE else 0.0,
         'use_gn': cfg.MODEL.USE_GN,
+        'gn_groups': (_get_group_gn(cfg, cfg.REID.BPM_DIM)
+                      if cfg.MODEL.USE_GN else 0),
+        'gn_eps': cfg.GROUP_NORM.EPSILON,
     }
+
+
+def _get_group_gn(cfg, dim):
+    """GroupNorm groups for ``dim`` channels under cfg.GROUP_NORM."""
+    return get_group_gn(dim, cfg.GROUP_NORM.DIM_PER_GP,
+                        cfg.GROUP_NORM.NUM_GROUPS)
 
 
 def combo_masks(spec):
@@ -168,26 +176,26 @@ def combine_strips(ave, mx, masks, mode):
 
 def init_head_params(gen, spec, dim_in, device, param_prefix='reid'):
     """Stacked head params and BN state: ``{p}_conv_w [R, C, D]`` (MSRA
-    fan-out), ``{p}_conv_b [R, D]``, ``{p}_bn_s/_b [R, D]``,
-    ``{p}_fc_w [R, D, K]`` (gauss 0.001), ``{p}_fc_b [R, K]``."""
-    if spec.get('use_gn'):
-        raise NotImplementedError(_GN_TODO)
+    fan-out), ``{p}_conv_b [R, D]``, ``{p}_bn_s/_b [R, D]`` with running
+    stats (``{p}_gn_s/_b`` and no state under GN), ``{p}_fc_w [R, D, K]``
+    (gauss 0.001), ``{p}_fc_b [R, K]``."""
     r, d, k = len(spec['combos']), spec['bpm_dim'], spec['num_logits']
     p = param_prefix
     conv_w = torch.randn((r, dim_in, d), generator=gen) * math.sqrt(2.0 / d)
     fc_w = torch.randn((r, d, k), generator=gen) * 0.001
+    norm = p + ('_gn' if spec.get('use_gn') else '_bn')
     params = {
         p + '_conv_w': conv_w.to(device),
         p + '_conv_b': torch.zeros((r, d), device=device),
-        p + '_bn_s': torch.ones((r, d), device=device),
-        p + '_bn_b': torch.zeros((r, d), device=device),
+        norm + '_s': torch.ones((r, d), device=device),
+        norm + '_b': torch.zeros((r, d), device=device),
         p + '_fc_w': fc_w.to(device),
         p + '_fc_b': torch.zeros((r, k), device=device),
     }
-    state = {
-        p + '_bn_rm': torch.zeros((r, d), device=device),
-        p + '_bn_riv': torch.ones((r, d), device=device),
-    }
+    state = {}
+    if not spec.get('use_gn'):
+        state = {p + '_bn_rm': torch.zeros((r, d), device=device),
+                 p + '_bn_riv': torch.ones((r, d), device=device)}
     return params, state
 
 
@@ -220,20 +228,30 @@ def apply_head(params, state, combo_feats, spec, train=False,
       train: (features, logits, updates) with the new ``{p}_bn_rm/_riv``.
       The features are pre-dropout in both.
     """
-    if spec.get('use_gn'):
-        raise NotImplementedError(_GN_TODO)
     p = param_prefix
     x = torch.bmm(combo_feats.transpose(0, 1), params[p + '_conv_w'])
     x = x.transpose(0, 1) + params[p + '_conv_b'][None]
-    if train:
-        # SpatialBN on [B, D, 1, 1] per combo: batch stats over axis 0
-        mean, var = batch_stats(x, (0,))
-        updates = {p + '_bn_rm': running_update(state[p + '_bn_rm'], mean),
-                   p + '_bn_riv': running_update(state[p + '_bn_riv'], var)}
+    updates = {}
+    if spec.get('use_gn'):
+        # GroupNorm over D per (sample, combo): no batch statistics
+        bsz, r, d = x.shape
+        xg = x.reshape(bsz, r, spec['gn_groups'], d // spec['gn_groups'])
+        mean = torch.mean(xg, dim=3, keepdim=True)
+        var = torch.mean(torch.square(xg - mean), dim=3, keepdim=True)
+        x = ((xg - mean) * torch.rsqrt(var + spec['gn_eps'])).reshape(
+            bsz, r, d)
+        x = x * params[p + '_gn_s'][None] + params[p + '_gn_b'][None]
     else:
-        mean, var = state[p + '_bn_rm'], state[p + '_bn_riv']
-    x = (x - mean) * (torch.rsqrt(var + BN_EPSILON) * params[p + '_bn_s']) \
-        + params[p + '_bn_b']
+        # SpatialBN on [B, D, 1, 1] per combo: batch stats over axis 0
+        if train:
+            mean, var = batch_stats(x, (0,))
+            updates = {
+                p + '_bn_rm': running_update(state[p + '_bn_rm'], mean),
+                p + '_bn_riv': running_update(state[p + '_bn_riv'], var)}
+        else:
+            mean, var = state[p + '_bn_rm'], state[p + '_bn_riv']
+        x = (x - mean) * (torch.rsqrt(var + BN_EPSILON) *
+                          params[p + '_bn_s']) + params[p + '_bn_b']
     features = torch.relu(x)
     fc_in = features
     if train and spec['dropout'] > 0.0:

@@ -15,13 +15,19 @@ survives.  The body draws no random numbers (dropout is in the head,
 outside the checkpoint), so losses, gradients and updates equal those
 without it bit for bit on the CPU.
 
-Not ported: the FPN body (ROADMAP slice 6: the variants).
+``FPN.FPN_ON`` (the "scale-free" variant, ``models/fpn.py``) needs
+``REID.FPN_SHARED``: the head's params are shared by every pyramid level.
+Training batch-concatenates the levels level-major (the labels tiled
+``FPN_NUM`` times), so one loss set covers them all; extraction reads the
+coarsest level only.  With ``TPU.REMAT`` the body is checkpointed with its
+stages; ``TRAIN.FREEZE_CONV_BODY`` detaches the pyramid.
 """
 
 import torch
 import torch.utils.checkpoint
 
 from pps_tpu_torch.device import resolve_device
+from pps_tpu_torch.models import fpn as fpn_lib
 from pps_tpu_torch.models import heads as head_lib
 from pps_tpu_torch.models import losses as loss_lib
 from pps_tpu_torch.models import resnet as resnet_lib
@@ -47,17 +53,26 @@ class ReIDModel:
     """
 
     def __init__(self, cfg, device=None):
-        if cfg.FPN.FPN_ON:
-            raise NotImplementedError(
-                'FPN bodies are not ported yet (ROADMAP slice 6: the '
-                'variants)')
         self.cfg = cfg
         self.device = resolve_device(device)
         self.depth = _depth_from_name(cfg.MODEL.CONV_BODY)
         self.resnet_spec = resnet_lib.resnet_spec(cfg, self.depth)
-        resnet_lib.check_spec(self.resnet_spec)
+        self.fpn_spec = None
+        if cfg.FPN.FPN_ON:
+            self.fpn_spec = fpn_lib.fpn_spec(cfg, self.depth)
+            if not cfg.REID.FPN_SHARED:
+                raise ValueError(
+                    'FPN_ON requires REID.FPN_SHARED: the reference '
+                    'non-shared mode is broken by head-name collisions')
         self.head_spec = head_lib.head_spec(
             cfg, self.resnet_spec['spatial_scale'])
+        if self.fpn_spec is not None:
+            # per-level strip splits at scales (1/16, 1/16, 1/8, 1/4)
+            self.level_splits = [
+                head_lib.strip_splits(cfg.REID.BPM_STRIP_NUM,
+                                      cfg.REID.SCALE[1], sc)
+                for sc in self.fpn_spec['spatial_scales']]
+            self.head_spec['splits'] = self.level_splits[0]
         self.masks = torch.as_tensor(head_lib.combo_masks(self.head_spec),
                                      device=self.device)
         # stacked-param prefix: the head kind, as in the JAX package
@@ -76,8 +91,15 @@ class ReIDModel:
         """Random (params, state) from a CPU ``torch.Generator``."""
         params, state = resnet_lib.init_resnet_params(
             generator, self.resnet_spec, self.device)
+        head_dim_in = self.resnet_spec['dim_out']
+        if self.fpn_spec is not None:
+            fp, fs = fpn_lib.init_fpn_params(generator, self.fpn_spec,
+                                             self.device)
+            params.update(fp)
+            state.update(fs)
+            head_dim_in = self.fpn_spec['fpn_dim']
         hp, hs = head_lib.init_head_params(
-            generator, self.head_spec, self.resnet_spec['dim_out'],
+            generator, self.head_spec, head_dim_in,
             self.device, param_prefix=self.head_param_prefix)
         params.update(hp)
         state.update(hs)
@@ -94,31 +116,56 @@ class ReIDModel:
 
     def _features(self, params, state, images, train=False,
                   dropout_mask=None, generator=None):
-        """Returns (features [B, R, D], logits [B, R, K], updates); the
-        updates are {} in eval mode."""
+        """Returns (features [B', R, D], logits [B', R, K], updates); the
+        updates are {} in eval mode.  B' = B, or B * FPN_NUM in FPN
+        training (the levels batch-concatenated, level-major)."""
         # NHWC -> NCHW view; on the card its memory is channels_last
         x = images.float().permute(0, 3, 1, 2)
+        fpn = self.fpn_spec is not None
         if not train:
-            feat = resnet_lib.apply_resnet(params, state, x,
-                                           self.resnet_spec)
+            if fpn:
+                _, stages = resnet_lib.apply_resnet(
+                    params, state, x, self.resnet_spec, return_stages=True)
+                # test: the coarsest level only
+                feat = fpn_lib.apply_fpn(params, state, stages,
+                                         self.fpn_spec, levels=1)[0]
+            else:
+                feat = resnet_lib.apply_resnet(params, state, x,
+                                               self.resnet_spec)
             combo_feats = self._combo_feats(feat, self.head_spec['splits'])
             features, logits = head_lib.apply_head(
                 params, state, combo_feats, self.head_spec,
                 param_prefix=self.head_param_prefix)
             return features, logits, {}
+
+        stages_kw = {'return_stages': True} if fpn else {}
+
         def body(p, s, im):
             return resnet_lib.apply_resnet(p, s, im, self.resnet_spec,
-                                           train=True)
+                                           train=True, **stages_kw)
         if self.cfg.TPU.REMAT:
             # the body's RNG is not saved: it draws nothing
-            feat, updates = torch.utils.checkpoint.checkpoint(
+            out = torch.utils.checkpoint.checkpoint(
                 body, params, state, x, use_reentrant=False,
                 preserve_rng_state=False)
         else:
-            feat, updates = body(params, state, x)
-        if self.freeze_conv_body:
-            feat = feat.detach()
-        combo_feats = self._combo_feats(feat, self.head_spec['splits'])
+            out = body(params, state, x)
+        if fpn:
+            _, stages, updates = out
+            pyramid, fpn_upd = fpn_lib.apply_fpn(params, state, stages,
+                                                 self.fpn_spec, train=True)
+            updates.update(fpn_upd)
+            if self.freeze_conv_body:
+                # with FPN_ON the pyramid is the conv body's output
+                pyramid = [p.detach() for p in pyramid]
+            combo_feats = torch.cat(
+                [self._combo_feats(p, sp)
+                 for p, sp in zip(pyramid, self.level_splits)], dim=0)
+        else:
+            feat, updates = out
+            if self.freeze_conv_body:
+                feat = feat.detach()
+            combo_feats = self._combo_feats(feat, self.head_spec['splits'])
         features, logits, upd = head_lib.apply_head(
             params, state, combo_feats, self.head_spec, train=True,
             param_prefix=self.head_param_prefix, dropout_mask=dropout_mask,
@@ -145,7 +192,8 @@ class ReIDModel:
 
         batch: {'data': [B, H, W, 3], 'labels_int32': [B],
         'labels_oh': [B, K]} on ``self.device``.  ``generator`` draws the
-        dropout mask unless ``dropout_mask`` [B, R, D] (bool) is given.
+        dropout mask unless ``dropout_mask`` [B', R, D] (bool) is given
+        (B' = B * FPN_NUM under FPN).
         loss_scale_factor: scalar (tensor or float) multiplying the triplet
         term under REID.TRIPLET_LOSS_CROSS.  The log keys are the JAX
         package's; each value is a 0-d tensor.
@@ -154,6 +202,12 @@ class ReIDModel:
             params, state, batch['data'], train=True,
             dropout_mask=dropout_mask, generator=generator)
         labels = batch['labels_int32']
+        labels_oh = batch['labels_oh']
+        if self.fpn_spec is not None:
+            # level-major batch concat: the labels tiled FPN_NUM times
+            n = self.fpn_spec['fpn_num']
+            labels = labels.repeat(n)
+            labels_oh = labels_oh.repeat(n, 1)
         ce, acc = loss_lib.softmax_ce_losses(logits, labels)
         total = torch.sum(ce)
         logs = {'accuracy_cls': torch.mean(acc)}
@@ -165,8 +219,7 @@ class ReIDModel:
 
         if self.use_crm:
             probs = head_lib.apply_crm(params, features)
-            crm, crm_acc = loss_lib.crm_loss(probs, batch['labels_oh'],
-                                             labels)
+            crm, crm_acc = loss_lib.crm_loss(probs, labels_oh, labels)
             total = total + crm
             logs['crm_loss'] = crm
             logs['crm_accuracy'] = crm_acc

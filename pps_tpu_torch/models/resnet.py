@@ -7,10 +7,11 @@ Counterpart of ``pps_tpu/models/resnet.py``.  Params live in a flat
 from the JAX layout:
 
 * conv weights are OIHW (the reference pkl and torch layout), not HWIO;
+  int8 weights (``*_wq``) are OHWI, the layout of the int8 kernel;
 * activations run NCHW; on the card a map whose memory is NHWC is
   ``channels_last`` to cuDNN, so the NHWC input needs no transpose copy.
 
-Numerics follow the JAX body exactly (``resnet.py:183-259``):
+Numerics follow the JAX body exactly (``resnet.py:183-325``):
 
 * padding is symmetric ``((k-1)*d)//2`` per side, not torch's 'same', so
   the stride-2 stem and ``branch1`` match Caffe2;
@@ -24,9 +25,14 @@ Numerics follow the JAX body exactly (``resnet.py:183-259``):
   ``training=True`` updates with the unbiased variance, so it is not used;
 * ``TRAIN.FREEZE_AT`` detaches the map at the stage boundary.
 
-Not ported: GroupNorm / AffineChannel bodies, BN-folded (``_fb``) and
-int8 (``_wq``) bodies.  They raise NotImplementedError naming the ROADMAP
-slice that ports them.
+Body variants, as in the JAX package: ``MODEL.USE_GN`` (ConvGN: a
+bias-free conv + GroupNorm, no running stats, the stem's norm named
+``conv1_gn``), ``MODEL.USE_BN False`` (AffineChannel: ``y * s + b``, no
+statistics), a BN-folded body (``*_fb`` biases from
+``models/folding.py``, eval only) and the int8 body (``*_wq``/``*_xinv``/
+``*_osc``/``*_fb`` from ``models/quantize.py``, eval only, through
+``kernels/conv2d_int8.py``).  Int8 calibration records each conv input's
+per-channel absmax into the ``calibrate`` dict of ``apply_resnet``.
 """
 
 import math
@@ -34,11 +40,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from pps_tpu_torch.kernels.conv2d_int8 import conv2d_int8
+
 BN_EPSILON = 1e-5  # Caffe2 SpatialBN default epsilon
 BN_MOMENTUM = 0.9  # Caffe2 SpatialBN default momentum
-
-_VARIANT_TODO = ('{} bodies are not ported yet (ROADMAP slice 6: the '
-                 'variants)')
 
 BLOCK_COUNTS = {
     50: (3, 4, 6, 3),
@@ -50,8 +55,8 @@ DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
 
 
 def resnet_spec(cfg, depth=50):
-    """Static description of the conv body derived from cfg: the JAX
-    ``resnet_spec`` less the keys only the GN body reads."""
+    """Static description of the conv body derived from cfg (the JAX
+    ``resnet_spec``)."""
     n1, n2, n3, n4 = BLOCK_COUNTS[depth]
     res5_stride = cfg.RESNETS.RES5_STRIDE
     res5_dilation = cfg.RESNETS.RES5_DILATION
@@ -59,6 +64,7 @@ def resnet_spec(cfg, depth=50):
     return {
         'depth': depth,
         'num_groups': cfg.RESNETS.NUM_GROUPS,
+        'width_per_group': cfg.RESNETS.WIDTH_PER_GROUP,
         'stride_1x1': cfg.RESNETS.STRIDE_1X1,
         'stages': [
             # (name, n_blocks, dim_out, dim_inner, stride, dilation)
@@ -71,17 +77,30 @@ def resnet_spec(cfg, depth=50):
         'dim_out': 2048,
         'freeze_at': cfg.TRAIN.FREEZE_AT,
         'dtype': cfg.MODEL.DTYPE,
+        # GroupNorm body (MODEL.USE_GN); MODEL.USE_BN False ->
+        # AffineChannel (y = x * s + b, no statistics), ignored under GN
         'use_gn': bool(cfg.MODEL.USE_GN),
         'use_affine': not bool(cfg.MODEL.USE_BN),
+        'gn_dim_per_gp': cfg.GROUP_NORM.DIM_PER_GP,
+        'gn_num_groups': cfg.GROUP_NORM.NUM_GROUPS,
+        'gn_eps': cfg.GROUP_NORM.EPSILON,
     }
 
 
-def check_spec(spec):
-    """Raise for body variants this slice does not port."""
-    if spec['use_gn']:
-        raise NotImplementedError(_VARIANT_TODO.format('GroupNorm'))
-    if spec['use_affine']:
-        raise NotImplementedError(_VARIANT_TODO.format('AffineChannel'))
+def get_group_gn(dim, dim_per_gp, num_groups):
+    """Number of GroupNorm groups for ``dim`` channels (one of
+    GROUP_NORM.DIM_PER_GP / NUM_GROUPS is -1)."""
+    assert dim_per_gp == -1 or num_groups == -1, \
+        'GroupNorm: can only specify G or C/G.'
+    if dim_per_gp > 0:
+        assert dim % dim_per_gp == 0
+        return dim // dim_per_gp
+    assert dim % num_groups == 0
+    return num_groups
+
+
+def _gn_groups(spec, dim):
+    return get_group_gn(dim, spec['gn_dim_per_gp'], spec['gn_num_groups'])
 
 
 # ---------------------------------------------------------------------------
@@ -97,40 +116,53 @@ def _msra_fill(gen, shape, device):
     return w.to(device)
 
 
-def _init_bn(params, state, bn, c_out, device):
-    params[bn + '_s'] = torch.ones(c_out, device=device)
-    params[bn + '_b'] = torch.zeros(c_out, device=device)
-    state[bn + '_rm'] = torch.zeros(c_out, device=device)
-    state[bn + '_riv'] = torch.ones(c_out, device=device)
+def _init_norm(params, state, norm, c_out, device, kind):
+    """The norm after a conv: 'bn' (SpatialBN: scale, bias, running
+    stats), 'affine' (AffineChannel: scale and bias only) or 'gn'
+    (GroupNorm: scale and bias; ``norm`` names its ``_gn`` prefix)."""
+    params[norm + '_s'] = torch.ones(c_out, device=device)
+    params[norm + '_b'] = torch.zeros(c_out, device=device)
+    if kind == 'bn':
+        state[norm + '_rm'] = torch.zeros(c_out, device=device)
+        state[norm + '_riv'] = torch.ones(c_out, device=device)
 
 
-def _init_conv_bn(gen, params, state, name, kh, kw, c_in, c_out, device):
+def _norm_kind(spec):
+    if spec.get('use_gn'):
+        return 'gn'
+    return 'affine' if spec.get('use_affine') else 'bn'
+
+
+def _init_conv_bn(gen, params, state, name, kh, kw, c_in, c_out, device,
+                  kind):
     params[name + '_w'] = _msra_fill(gen, (c_out, c_in, kh, kw), device)
-    _init_bn(params, state, name + '_bn', c_out, device)
+    _init_norm(params, state, name + ('_gn' if kind == 'gn' else '_bn'),
+               c_out, device, kind)
 
 
 def init_resnet_params(gen, spec, device):
     """Randomly initialised (params, state) for the conv body.  ``gen`` is
     a CPU ``torch.Generator``; tensors are placed on ``device``."""
-    check_spec(spec)
+    kind = _norm_kind(spec)
     params, state = {}, {}
-    # stem: conv1 7x7/2 + bn, the bn named res_conv1_bn (reference naming)
+    # stem: conv1 7x7/2 + its norm, named res_conv1_bn (conv1_gn under GN)
     params['conv1_w'] = _msra_fill(gen, (64, 3, 7, 7), device)
-    _init_bn(params, state, 'res_conv1_bn', 64, device)
+    _init_norm(params, state, 'conv1_gn' if kind == 'gn' else 'res_conv1_bn',
+               64, device, kind)
     dim_in = 64
     for (stage, n_blocks, dim_out, dim_inner, _s, _d) in spec['stages']:
         for i in range(n_blocks):
             prefix = '{}_{}'.format(stage, i)
             if i == 0 and dim_in != dim_out:
                 _init_conv_bn(gen, params, state, prefix + '_branch1',
-                              1, 1, dim_in, dim_out, device)
+                              1, 1, dim_in, dim_out, device, kind)
             _init_conv_bn(gen, params, state, prefix + '_branch2a',
-                          1, 1, dim_in, dim_inner, device)
+                          1, 1, dim_in, dim_inner, device, kind)
             _init_conv_bn(gen, params, state, prefix + '_branch2b',
                           3, 3, dim_inner // spec['num_groups'], dim_inner,
-                          device)
+                          device, kind)
             _init_conv_bn(gen, params, state, prefix + '_branch2c',
-                          1, 1, dim_inner, dim_out, device)
+                          1, 1, dim_inner, dim_out, device, kind)
             dim_in = dim_out
     return params, state
 
@@ -190,6 +222,25 @@ def batch_norm_train(x, s, b, rm, riv):
                            running_update(riv, var))
 
 
+def group_norm(x, s, b, groups, eps=1e-5):
+    """GroupNorm over an NCHW map (the reference's SpatialGN): stats per
+    (sample, group) in float32, no running state, cast back."""
+    n, c, h, w = x.shape
+    xg = x.float().reshape(n, groups, c // groups, h, w)
+    mean = torch.mean(xg, dim=(2, 3, 4), keepdim=True)
+    var = torch.mean(torch.square(xg - mean), dim=(2, 3, 4), keepdim=True)
+    xg = (xg - mean) * torch.rsqrt(var + eps)
+    y = xg.reshape(n, c, h, w) * s[None, :, None, None] + \
+        b[None, :, None, None]
+    return y.to(x.dtype)
+
+
+def affine_channel(x, s, b):
+    """AffineChannel ``x.f32 * s + b``, cast back (no statistics)."""
+    y = x.float() * s[None, :, None, None] + b[None, :, None, None]
+    return y.to(x.dtype)
+
+
 def _bn(x, params, state, name, updates):
     """SpatialBN ``name`` (eval when ``updates`` is None, else train mode
     with the new running stats written into ``updates``)."""
@@ -202,35 +253,77 @@ def _bn(x, params, state, name, updates):
     return y
 
 
+def _gn(y, params, name, spec):
+    """GroupNorm after conv ``name``."""
+    return group_norm(y, params[name + '_gn_s'], params[name + '_gn_b'],
+                      _gn_groups(spec, y.shape[1]), spec['gn_eps'])
+
+
+def _norm(y, params, state, name, norm, spec, updates):
+    """The norm after conv ``name`` (its BN/affine params under ``norm``):
+    GroupNorm, a folded bias (eval), AffineChannel or SpatialBN, in the JAX
+    package's order of precedence."""
+    if spec.get('use_gn'):
+        return _gn(y, params, name, spec)
+    if updates is None and (name + '_fb') in params:
+        # BN pre-folded into the conv (models/folding.py): the bias only,
+        # added in the activation dtype
+        return y + params[name + '_fb'].to(y.dtype)[None, :, None, None]
+    if spec.get('use_affine'):
+        return affine_channel(y, params[norm + '_s'], params[norm + '_b'])
+    return _bn(y, params, state, norm, updates)
+
+
+def _record_amax(calibrate, name, x):
+    """int8 calibration: the per-channel absmax of conv ``name``'s input."""
+    calibrate[name] = torch.amax(torch.abs(x.float()), dim=(0, 2, 3))
+
+
+def _conv_int8(x, params, name, spec, stride=1, dilation=1, dtype=None,
+               groups=1):
+    """The int8 serving conv (BN folded into ``_wq``/``_osc``/``_fb``), then
+    GroupNorm for GN bodies: GN is input-dependent, so their quantized conv
+    carries fb = 0 and GN runs on its dequantized output."""
+    if x.is_cuda:
+        x = x.contiguous(memory_format=torch.channels_last)
+    y = conv2d_int8(x, params[name + '_wq'], params[name + '_xinv'],
+                    params[name + '_osc'], params[name + '_fb'],
+                    stride=stride, dilation=dilation, groups=groups,
+                    out_dtype=dtype)
+    return _gn(y, params, name, spec) if spec.get('use_gn') else y
+
+
 def _conv_bn(x, params, state, name, stride=1, dilation=1, dtype=None,
-             groups=1, updates=None):
-    if (name + '_wq') in params:
-        raise NotImplementedError(_VARIANT_TODO.format('int8 (_wq)'))
-    if (name + '_fb') in params:
-        raise NotImplementedError(_VARIANT_TODO.format('BN-folded (_fb)'))
+             groups=1, updates=None, spec=None, calibrate=None):
+    spec = spec or {}
+    if updates is None:
+        if calibrate is not None:
+            _record_amax(calibrate, name, x)
+        if (name + '_wq') in params:
+            return _conv_int8(x, params, name, spec, stride, dilation, dtype,
+                              groups)
     y = conv2d(x, params[name + '_w'], stride=stride, dilation=dilation,
                dtype=dtype, groups=groups)
-    return _bn(y, params, state, name + '_bn', updates)
+    return _norm(y, params, state, name, name + '_bn', spec, updates)
 
 
 def bottleneck_block(x, params, state, prefix, stride, dilation, stride_1x1,
-                     dtype=None, groups=1, updates=None):
+                     dtype=None, groups=1, updates=None, spec=None,
+                     calibrate=None):
     """1x1 -> 3x3 -> 1x1 bottleneck; ``stride_1x1`` puts the stride on the
     first 1x1 conv, else on the 3x3.  ``updates``: see ``_bn``."""
     str1, str3 = (stride, 1) if stride_1x1 else (1, stride)
+    kw = dict(dtype=dtype, updates=updates, spec=spec, calibrate=calibrate)
     shortcut = x
-    if (prefix + '_branch1_w') in params:
+    if (prefix + '_branch1_w') in params or (prefix + '_branch1_wq') in params:
         shortcut = _conv_bn(x, params, state, prefix + '_branch1',
-                            stride=stride, dtype=dtype, updates=updates)
-    cur = _conv_bn(x, params, state, prefix + '_branch2a', stride=str1,
-                   dtype=dtype, updates=updates)
+                            stride=stride, **kw)
+    cur = _conv_bn(x, params, state, prefix + '_branch2a', stride=str1, **kw)
     cur = F.relu(cur)
     cur = _conv_bn(cur, params, state, prefix + '_branch2b', stride=str3,
-                   dilation=dilation, dtype=dtype, groups=groups,
-                   updates=updates)
+                   dilation=dilation, groups=groups, **kw)
     cur = F.relu(cur)
-    cur = _conv_bn(cur, params, state, prefix + '_branch2c', stride=1,
-                   dtype=dtype, updates=updates)
+    cur = _conv_bn(cur, params, state, prefix + '_branch2c', stride=1, **kw)
     return F.relu(cur + shortcut)
 
 
@@ -240,7 +333,18 @@ def max_pool_3x3_s2(x):
     return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
 
 
-def apply_resnet(params, state, x, spec, train=False, return_stages=False):
+def _stem(params, state, x, spec, dtype, updates, calibrate):
+    if updates is None and calibrate is not None:
+        _record_amax(calibrate, 'conv1', x)
+    if updates is None and 'conv1_wq' in params:
+        return _conv_int8(x, params, 'conv1', spec, stride=2, dtype=dtype)
+    cur = conv2d(x, params['conv1_w'], stride=2, dtype=dtype)
+    # the stem's norm is conv1_gn or res_conv1_bn (its folded bias conv1_fb)
+    return _norm(cur, params, state, 'conv1', 'res_conv1_bn', spec, updates)
+
+
+def apply_resnet(params, state, x, spec, train=False, return_stages=False,
+                 calibrate=None):
     """Run the conv body.
 
     Args:
@@ -250,20 +354,18 @@ def apply_resnet(params, state, x, spec, train=False, return_stages=False):
       train: batch-stat BN, running-stat updates and the FREEZE_AT
         detaches.
       return_stages: also return {res2..res5} intermediate maps.
+      calibrate: eval only; a dict that receives each conv's input absmax
+        per channel ({conv base name: [C_in] float32}).
 
     Returns:
       eval: the res5 NCHW map, or (res5, stages) with return_stages.
       train: (res5, updates), or (res5, stages, updates), where updates
         maps each ``*_bn_rm`` / ``*_bn_riv`` to its new value.
     """
-    check_spec(spec)
-    if 'conv1_wq' in params or 'conv1_fb' in params:
-        raise NotImplementedError(_VARIANT_TODO.format('int8 / BN-folded'))
     dtype = DTYPES[spec.get('dtype', 'float32')]
     updates = {} if train else None
     freeze_at = spec.get('freeze_at', 0) if train else 0
-    cur = conv2d(x, params['conv1_w'], stride=2, dtype=dtype)
-    cur = _bn(cur, params, state, 'res_conv1_bn', updates)
+    cur = _stem(params, state, x, spec, dtype, updates, calibrate)
     cur = F.relu(cur)
     cur = max_pool_3x3_s2(cur)
     if freeze_at == 1:
@@ -276,7 +378,8 @@ def apply_resnet(params, state, x, spec, train=False, return_stages=False):
                 cur, params, state, '{}_{}'.format(stage, i),
                 stride=stride if i == 0 else 1, dilation=dilation,
                 stride_1x1=spec['stride_1x1'], dtype=dtype,
-                groups=spec['num_groups'], updates=updates)
+                groups=spec['num_groups'], updates=updates, spec=spec,
+                calibrate=calibrate)
         # the reference freezes by a stop-gradient at the stage boundary
         if freeze_at == si + 2:
             cur = cur.detach()

@@ -43,15 +43,19 @@ def resnet_fwd_flops(spec, h, w):
 
 
 def model_fwd_flops(cfg):
-    """Forward FLOPs per image of the whole model: the body, the stacked
-    per-combo head (dim_in -> D) and the classifiers (D -> NUM_CLASSES)."""
-    if cfg.FPN.FPN_ON:
-        raise NotImplementedError(
-            'FPN bodies are not ported yet (ROADMAP slice 6: the variants)')
+    """Forward FLOPs per image of the whole model: the body, the FPN's
+    coarsest-level terms when FPN_ON (the JAX package's accounting: a
+    1x1 and a 3x3 conv of FPN.DIM at the res5 map), the stacked per-combo
+    head (dim_in -> D) and the classifiers (D -> NUM_CLASSES)."""
     rspec = resnet_lib.resnet_spec(cfg, _depth_from_name(cfg.MODEL.CONV_BODY))
     w_in, h_in = cfg.REID.SCALE
-    total, _, _ = resnet_fwd_flops(rspec, h_in, w_in)
+    total, h, w = resnet_fwd_flops(rspec, h_in, w_in)
+    dim_in = rspec['dim_out']
+    if cfg.FPN.FPN_ON:
+        fd = cfg.FPN.DIM
+        total += 2 * h * w * dim_in * fd + 2 * h * w * 9 * fd * fd
+        dim_in = fd
     hspec = head_lib.head_spec(cfg, rspec['spatial_scale'])
     r, d = len(hspec['combos']), hspec['bpm_dim']
-    total += 2 * r * (rspec['dim_out'] * d + d * cfg.MODEL.NUM_CLASSES)
+    total += 2 * r * (dim_in * d + d * cfg.MODEL.NUM_CLASSES)
     return total

@@ -7,7 +7,8 @@ sets up, hence ``--noconftest``):
 
 This file imports torch and numpy only.  It holds each kernel against its
 plain version and the card's float32 path against the CPU's: extraction,
-the exact, streaming and IVF top-k, re-ranking, the train step.
+the exact, streaming and IVF top-k, re-ranking, the train step, and the
+int8 body.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ from pps_tpu_torch import config as tcfg
 from pps_tpu_torch.engine.serving import QueryEmbedder, RetrievalIndex
 from pps_tpu_torch.flagship import flagship_cfg
 from pps_tpu_torch.kernels import build
+from pps_tpu_torch.kernels import conv2d_int8 as ck
 from pps_tpu_torch.kernels import zero_even as ze
 from pps_tpu_torch.models.model import build_model
 from pps_tpu_torch.evaluation.rerank import re_ranking, rerank_distmat_device
@@ -478,3 +480,82 @@ def test_remat_train_forward_card(cuda):
         assert torch.equal(u0[k], u1[k]), k
     for a, b in zip(g0, g1):
         assert _rms(a - b) <= 1e-4 * _rms(a) + 1e-12
+
+
+INT8_CONVS = [  # (n, c_in, h, w, c_out, k, stride, dilation, groups, per_ch)
+    (2, 3, 96, 32, 64, 7, 2, 1, 1, False),     # the stem, K = 147
+    (2, 64, 24, 8, 64, 3, 1, 1, 1, False),
+    (2, 256, 24, 8, 128, 1, 2, 1, 1, False),   # a strided branch1
+    (3, 64, 13, 7, 70, 3, 1, 1, 1, False),     # ragged M and N tiles
+    (2, 64, 12, 10, 96, 3, 1, 2, 1, False),    # dilated
+    (2, 64, 12, 10, 64, 3, 1, 1, 2, True),     # grouped, per-channel
+    (2, 8, 12, 10, 16, 3, 1, 1, 4, True),      # cg 2: the element path
+]
+
+
+@pytest.mark.parametrize('case', INT8_CONVS)
+def test_conv2d_int8_kernel_equals_plain(cuda, case):
+    """The int8 kernel against its plain version on the card: the int32
+    accumulators and the bf16 / float32 outputs bit for bit."""
+    n, cin, h, w, cout, k, s, d, g, per_ch = case
+    gen = torch.Generator().manual_seed(sum(case[:8]))
+    x_dtype = torch.float32 if cin == 3 else torch.bfloat16
+    x = (torch.randn(n, cin, h, w, generator=gen) * 3).to(x_dtype).to(
+        cuda).contiguous(memory_format=torch.channels_last)
+    wq = torch.randint(-127, 128, (cout, k, k, cin // g), generator=gen,
+                       dtype=torch.int8).to(cuda)
+    xinv = (torch.rand(cin, generator=gen) * 20 + 1) if per_ch \
+        else torch.tensor(17.3)
+    osc = torch.rand(cout, generator=gen) * 1e-4
+    fb = torch.randn(cout, generator=gen)
+    args = (x, wq) + tuple(t.to(cuda) for t in (xinv, osc, fb))
+    for out_dtype in (torch.int32, torch.bfloat16, torch.float32):
+        kw = dict(stride=s, dilation=d, groups=g,
+                  accumulators=out_dtype == torch.int32)
+        if out_dtype != torch.int32:
+            kw['out_dtype'] = out_dtype
+        before = ck.launches
+        got = ck.conv2d_int8(*args, **kw)
+        want = ck.conv2d_int8_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert ck.launches == before + 1
+        assert got.dtype == want.dtype == out_dtype
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        bits = {torch.int32: torch.int32, torch.float32: torch.int32,
+                torch.bfloat16: torch.int16}[out_dtype]
+        assert torch.equal(got.view(bits), want.view(bits)), out_dtype
+
+
+def test_conv2d_int8_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(1, 8, 4, 4, device=cuda)  # NCHW memory, not NHWC
+    wq = torch.zeros(4, 3, 3, 8, dtype=torch.int8, device=cuda)
+    one, osc, fb = (torch.tensor(1.0, device=cuda),
+                    torch.ones(4, device=cuda), torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError, match='channels_last'):
+        ck.conv2d_int8(x, wq, one, osc, fb)
+    with pytest.raises(ValueError, match='is on'):
+        ck.conv2d_int8(x.contiguous(memory_format=torch.channels_last), wq,
+                       one.cpu(), osc, fb)
+
+
+def test_int8_extraction_card_matches_cpu(small_models):
+    """The int8 body quantized on the CPU, run on the card through the
+    kernel (53 launches a batch) and on the CPU through its plain version:
+    the int8 body is exact integer arithmetic with the same float32
+    epilogue, so only the head's float32 sums differ."""
+    from pps_tpu_torch.models.quantize import quantize_for_eval
+    cfg, cpu_model, (p, s), card_model, (cp, cs) = small_models
+    calib = np.random.RandomState(4).randn(4, 96, 32, 3).astype(
+        np.float32) * 50
+    qp = quantize_for_eval(cpu_model, p, s, calib)
+    x = torch.tensor(np.random.RandomState(5).randn(3, 96, 32, 3).astype(
+        np.float32) * 50)
+    want = cpu_model.extract_features(qp, s, x)
+    before = ck.launches
+    dev = card_model.device
+    got = card_model.extract_features({k: v.to(dev) for k, v in qp.items()},
+                                      cs, x.to(dev))
+    torch.cuda.synchronize()
+    assert ck.launches - before == 53
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5)

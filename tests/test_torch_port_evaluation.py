@@ -313,10 +313,12 @@ def test_run_inference_matches(tmp_path, capsys):
 
 
 def test_engine_refuses_unported_paths(tmp_path):
-    # (REID.RERANK and REID.VIS are ported: slice 5)
-    _, tc = both_cfgs(TINY + ['TPU.INT8_EVAL', 'True'])
-    with pytest.raises(NotImplementedError, match='slice 6'):
-        ttest_engine.test_net(tc, None, 'port_eval_test', device='cpu')
+    # (REID.RERANK and REID.VIS are ported: slice 5; TPU.INT8_EVAL: the
+    # variants slice, tests/test_torch_port_quantize.py)
+    _, tc = both_cfgs(TINY)
+    with pytest.raises(NotImplementedError, match='slice 8'):
+        ttest_engine.test_net(tc, str(tmp_path / 'w.orbax'),
+                              'port_eval_test', device='cpu')
     # mixed sizes and host preprocessing are ported (slice 3b): the
     # padded bucket comes from the metadata, and no decode is refused
     _, tc = both_cfgs(TINY)

@@ -134,9 +134,18 @@ def test_embedding_norm_clamp():
 
 
 def test_training_head_not_ported():
-    """The training head is ported (tests/test_torch_port_train_modes.py);
-    its GroupNorm form is not."""
+    """The training head is ported (tests/test_torch_port_train_modes.py),
+    and since the variants slice so is its GroupNorm form: in train mode
+    it equals pps_tpu's, with no running-stat updates."""
     params, state, feats, spec = _head_inputs()
-    with pytest.raises(NotImplementedError, match='GroupNorm'):
-        th.apply_head({}, {}, torch.tensor(feats), dict(spec, use_gn=True),
-                      train=True)
+    params = {k.replace('_bn_', '_gn_'): v for k, v in params.items()}
+    spec = dict(spec, use_gn=True, gn_groups=2, gn_eps=1e-5)
+    jf, jl, jupd = jh.apply_head(params, {}, jnp.asarray(feats), spec,
+                                 train=True, param_prefix='pps')
+    tf, tl, tupd = th.apply_head({k: torch.tensor(v)
+                                  for k, v in params.items()}, {},
+                                 torch.tensor(feats), spec, train=True,
+                                 param_prefix='pps')
+    assert jupd == {} and tupd == {}
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), RTOL, ATOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), RTOL, ATOL)

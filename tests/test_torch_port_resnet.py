@@ -145,12 +145,21 @@ def test_batch_norm_bf16_op_order():
 
 
 def test_unported_variants_raise():
+    """The GroupNorm and AffineChannel bodies are ported (variants slice;
+    tests/test_torch_port_gn.py holds them against pps_tpu): both init and
+    run here.  An int8 body is eval-only, as in pps_tpu: in train mode it
+    has no float conv weights to run."""
     cfg = flagship_cfg(scale=(32, 96), num_classes=11, dtype='float32')
     spec = tres.resnet_spec(cfg, 50)
-    with pytest.raises(NotImplementedError, match='GroupNorm'):
-        tres.check_spec(dict(spec, use_gn=True))
-    with pytest.raises(NotImplementedError, match='AffineChannel'):
-        tres.check_spec(dict(spec, use_affine=True))
-    with pytest.raises(NotImplementedError, match='int8'):
+    x = torch.zeros(1, 3, 32, 16)
+    for variant in (dict(use_gn=True), dict(use_affine=True)):
+        vspec = dict(spec, **variant)
+        params, state = tres.init_resnet_params(torch.Generator(), vspec,
+                                                'cpu')
+        assert ('conv1_gn_s' in params) == bool(variant.get('use_gn'))
+        assert state == {}
+        assert tres.apply_resnet(params, state, x, vspec).shape == (
+            1, 2048, 2, 1)
+    with pytest.raises(KeyError, match='conv1_w'):
         tres.apply_resnet({'conv1_wq': None}, {}, torch.zeros(1, 3, 8, 8),
                           spec, train=True)

@@ -34,7 +34,7 @@ from pps_tpu_torch import kernels
 from pps_tpu_torch.data.transforms import _cv2
 from pps_tpu_torch.engine import checkpoint as tckpt
 from pps_tpu_torch.engine import serving as tserv
-from pps_tpu_torch.kernels import zero_even
+from pps_tpu_torch.kernels import conv2d_int8, zero_even
 from pps_tpu_torch.models.model import build_model
 
 REPO = Path(__file__).resolve().parents[1]
@@ -268,7 +268,7 @@ def test_daemon_endpoints_restart_and_retrieve(site):
     # the entry point reports its own kernel launches at exit: none on the
     # CPU, where every wrapper runs its plain version
     counts = json.loads((root / 'retrieve.launches.json').read_text())
-    assert counts == {'zero_even': 0}
+    assert counts == {'conv2d_int8': 0, 'zero_even': 0}
     blocks = r.stdout.split('query: ')[1:]
     assert len(blocks) == 3
     for block, (p0, d0) in zip(blocks, before):
@@ -281,11 +281,13 @@ def test_write_launch_counts(monkeypatch, tmp_path):
     """An entry point's launch counts go to the file the environment names,
     and nowhere when it names none."""
     monkeypatch.setattr(zero_even, 'launches', 3)
+    monkeypatch.setattr(conv2d_int8, 'launches', 5)
     monkeypatch.delenv(kernels.LAUNCH_COUNTS_ENV, raising=False)
     kernels.write_launch_counts()
     assert list(tmp_path.iterdir()) == []
     path = tmp_path / 'counts.json'
     monkeypatch.setenv(kernels.LAUNCH_COUNTS_ENV, str(path))
     kernels.write_launch_counts()
-    assert json.loads(path.read_text()) == {'zero_even': 3}
+    assert json.loads(path.read_text()) == {'conv2d_int8': 5,
+                                            'zero_even': 3}
     assert [p.name for p in tmp_path.iterdir()] == ['counts.json']
