@@ -12,11 +12,15 @@ is non-zero:
 2. kernel   - each kernel against its plain PyTorch version on the card
               (zero_even: bitwise, f32/bf16/f16, NaN at an even index;
               conv2d_int8: bitwise, output and int32 accumulators, on the
-              53 convs of the R-50 body at batch 4, a ragged and a grouped
-              per-channel shape), and its time beside its bound
-              (conv2d_int8: every body conv at batch 64, beside cuDNN's
-              bf16 conv and, for the 1x1s, torch._int_mm; the per-conv
-              table goes to build/chip_smoke_logs/kernel_int8.json).
+              53 convs of the R-50 body at batch 4, 64 and 60, a ragged
+              and a grouped per-channel shape; every body conv on a wgmma
+              route; the library's SASS holds IGMMA, wgmma's s8 form,
+              and UTMALDG), and its
+              time beside its bound (conv2d_int8: device time of every
+              body conv at batch 64 from CUDA-graph replays, beside
+              cuDNN's bf16 conv and, for the 1x1s, torch._int_mm; route,
+              TOP/s, GB/s and share of the bound per conv; the table goes
+              to build/chip_smoke_logs/kernel_int8.json).
 3. extract  - the flagship model (R-50, 384x128, bf16 body, 3968-d) with
               seeded random weights embeds a Market-1501-sized gallery
               (19,732 uint8 decodes at 128x64) in batches of 64 through
@@ -119,7 +123,9 @@ the same synthetic Market set):
 28. test_int8 - ``run_inference`` on the _int8 yaml with test_net's pkl:
               calibrated on 256 images, 53 conv2d_int8 launches a batch,
               int8 against bf16 embeddings of the same images (cosine >=
-              0.99), both mAPs and extraction rates.
+              0.99), both mAPs and extraction rates; then the model-bound
+              rates from a stack of 2,048 decodes, int8 against the folded
+              bf16 flagship, in turns.
 29. export  - ``python -m pps_tpu_torch.tools.export_model`` (--fold-bn,
               --int8) in child processes; each .pt2 reloaded and run
               against eager extraction within 1e-6.
@@ -293,9 +299,12 @@ def phase_build():
     seconds = time.perf_counter() - t0
     smi = nvidia_smi_line()
     print(smi, flush=True)
+    from pps_tpu_torch.tools.conv2d_int8_check import ptxas_table
     ptxas = {n: [ln for ln in r['log'].splitlines()
                  if 'registers' in ln or 'spill' in ln]
-             for n, r in report.items()}
+             for n, r in report.items() if n != 'conv2d_int8'}
+    # conv2d_int8: registers, spills and wgmma serialization by instantiation
+    ptxas['conv2d_int8'] = ptxas_table(report['conv2d_int8']['log'])
     emit('build', seconds=seconds, kernels=sorted(report), ptxas=ptxas,
          nvidia_smi=smi)
 
@@ -1222,31 +1231,6 @@ def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec,
 # ---------------------------------------------------------------------------
 
 
-def body_convs(spec, h, w):
-    """The convs of a ResNet body at input h x w, in order, as (name, c_in,
-    h, w, c_out, k, stride, dilation, groups) with each conv's input
-    size."""
-    out = [('conv1', 3, h, w, 64, 7, 2, 1, 1)]
-    h, w = -(-h // 4), -(-w // 4)  # conv1 /2, then the 3x3/2 max pool
-    dim_in = 64
-    for stage, n, dim_out, inner, stride, dil in spec['stages']:
-        for i in range(n):
-            s = stride if i == 0 else 1
-            s1, s3 = (s, 1) if spec['stride_1x1'] else (1, s)
-            p = '{}_{}'.format(stage, i)
-            if i == 0 and dim_in != dim_out:
-                out.append((p + '_branch1', dim_in, h, w, dim_out, 1, s, 1,
-                            1))
-            out.append((p + '_branch2a', dim_in, h, w, inner, 1, s1, 1, 1))
-            h, w = -(-h // s1), -(-w // s1)
-            out.append((p + '_branch2b', inner, h, w, inner, 3, s3, dil,
-                        spec['num_groups']))
-            h, w = -(-h // s3), -(-w // s3)
-            out.append((p + '_branch2c', inner, h, w, dim_out, 1, 1, 1, 1))
-            dim_in = dim_out
-    return out
-
-
 def int8_inputs(gen, n, conv, dev, per_channel=False):
     """Seeded inputs of one int8 conv on the card: x float32 for the stem,
     bf16 for the body, NHWC memory; OHWI int8 weights; scales in the
@@ -1296,23 +1280,46 @@ def check_int8(args, conv):
                 conv, args[0].shape[0], 'acc' if acc else 'bf16'))
 
 
+def sass_has(lib_path, opcodes):
+    """{opcode: count} of the SASS instructions in a built library
+    (``cuobjdump --dump-sass``, found beside nvcc)."""
+    from pps_tpu_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), 'cuobjdump')
+    sass = subprocess.run([tool, '--dump-sass', str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return {op: sass.count(op) for op in opcodes}
+
+
 def phase_kernel_int8(dev):
     """conv2d_int8 against its plain version on the card, bitwise (the
     bf16 output and the int32 accumulators), on the 53 convs of the R-50
     body at batch 4, BATCH (the main path's) and INT8_TAIL, a ragged shape
-    and a grouped one with per-channel scales; every body conv timed at
-    BATCH beside its bound, its plain version, cuDNN's bf16 conv and (1x1
-    convs) torch._int_mm."""
+    and a grouped one with per-channel scales; every body conv's route, and
+    its time at BATCH beside its bound, its plain version, cuDNN's bf16
+    conv and (1x1 convs) torch._int_mm.  Times are device times: CUDA
+    events around replays of a CUDA graph of 10 calls (eager calls back to
+    back, which add the host's time per call, as ``eager_ms``).  Gates: the
+    library's SASS holds wgmma (IGMMA, its s8 form) and TMA loads
+    (UTMALDG), and every body conv takes a wgmma route."""
     import torch
     import torch.nn.functional as F
     from pps_tpu_torch.flagship import flagship_cfg
+    from pps_tpu_torch.kernels import build
     from pps_tpu_torch.kernels import conv2d_int8 as ck
     from pps_tpu_torch.models import resnet as resnet_lib
+    from pps_tpu_torch.tools.conv2d_int8_check import graph_ms
     cfg = flagship_cfg()
     w_in, h_in = cfg.REID.SCALE
-    convs = body_convs(resnet_lib.resnet_spec(cfg, 50), h_in, w_in)
+    convs = ck.resnet_body_convs(resnet_lib.resnet_spec(cfg, 50), h_in, w_in)
     if len(convs) != INT8_CONVS_PER_BATCH:
         raise AssertionError('{} body convs'.format(len(convs)))
+    # wgmma assembles to HGMMA for floats and IGMMA for s8 x s8
+    sass = sass_has(build.library_path('conv2d_int8'),
+                    ('HGMMA', 'IGMMA', 'UTMALDG', 'UTMASTG'))
+    if not ((sass['HGMMA'] or sass['IGMMA']) and sass['UTMALDG']):
+        raise AssertionError('conv2d_int8 SASS lacks wgmma or TMA: {}'
+                             .format(sass))
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [(INT8_CHECK_BATCH, c, False) for c in convs] + [
         (3, ('ragged', 64, 13, 7, 70, 3, 1, 1, 1), False),
@@ -1326,18 +1333,22 @@ def phase_kernel_int8(dev):
         check_int8(args, conv)
         check_int8((x[:INT8_TAIL],) + args[1:], conv)
         _, cin, h, w, cout, k, s, d, g = conv
+        r = ck.route(x.dtype, BATCH, cin, h, w, cout, k, k, s, d, g)
+        if not r['kind'].startswith('wgmma'):
+            raise AssertionError('{} takes the {} route'.format(conv[0],
+                                                                r['kind']))
         kw = dict(stride=s, dilation=d, groups=g, out_dtype=torch.bfloat16)
-        ms = cuda_ms(lambda: ck.conv2d_int8(*args, **kw), iters=10,
-                     warmup=2)
+        ms = graph_ms(lambda: ck.conv2d_int8(*args, **kw))
+        eager_ms = cuda_ms(lambda: ck.conv2d_int8(*args, **kw), iters=10,
+                           warmup=2)
         plain_ms = cuda_ms(lambda: ck.conv2d_int8_plain(*args, **kw),
                            iters=1, warmup=1)
         wb = torch.randn(cout, cin // g, k, k, generator=gen, device=dev).to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
         xb = x.to(torch.bfloat16)
         pad = ((k - 1) * d) // 2
-        cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=s, padding=pad,
-                                            dilation=d, groups=g),
-                           iters=10, warmup=2)
+        cudnn_ms = graph_ms(lambda: F.conv2d(xb, wb, stride=s, padding=pad,
+                                             dilation=d, groups=g))
         int_mm_ms = None
         if k == 1:  # the same int32 product as [N*Ho*Wo, C_in] x [C_in, C_out]
             ho, wo = -(-h // s), -(-w // s)
@@ -1345,16 +1356,20 @@ def phase_kernel_int8(dev):
                               generator=gen, device=dev, dtype=torch.int8)
             b = wq.reshape(cout, cin).t()
             try:
-                int_mm_ms = cuda_ms(lambda: torch._int_mm(a, b), iters=10,
-                                    warmup=2)
+                int_mm_ms = graph_ms(lambda: torch._int_mm(a, b))
             except RuntimeError as e:  # a yardstick only: report, go on
                 int_mm_ms = 'refused: {}'.format(str(e)[:120])
         ops_s, bytes_s = int8_bound(conv, BATCH, x, 2)
-        rows.append({'conv': conv[0], 'shape': list(conv[1:]), 'ms': ms,
-                     'plain_ms': plain_ms, 'cudnn_bf16_ms': cudnn_ms,
-                     'int_mm_ms': int_mm_ms, 'ops_s': ops_s,
-                     'bytes_s': bytes_s,
-                     'bound_ms': max(ops_s, bytes_s) * 1e3})
+        bound_ms = max(ops_s, bytes_s) * 1e3
+        rows.append({'conv': conv[0], 'shape': list(conv[1:]),
+                     'route': r['kind'], 'bn': r['bn'], 'box': r['box'],
+                     'ms': ms, 'eager_ms': eager_ms, 'plain_ms': plain_ms,
+                     'cudnn_bf16_ms': cudnn_ms, 'int_mm_ms': int_mm_ms,
+                     'ops_s': ops_s, 'bytes_s': bytes_s,
+                     'bound_ms': bound_ms,
+                     'tops': ops_s * INT8_PEAK_OPS / (ms * 1e-3) / 1e12,
+                     'gbps': bytes_s * HBM_BYTES_PER_S / (ms * 1e-3) / 1e9,
+                     'bound_share': bound_ms / ms})
     path = os.path.join(ROOT, 'build', 'chip_smoke_logs',
                         'kernel_int8.json')
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -1366,21 +1381,30 @@ def phase_kernel_int8(dev):
              'res4 1x1 1024->256 at 24x8': named['res4_1_branch2a']}
     ops_s = sum(r['ops_s'] for r in rows)
     bytes_s = sum(r['bytes_s'] for r in rows)
+    one = [r for r in rows if isinstance(r['int_mm_ms'], float)]
     body = {'ms': sum(r['ms'] for r in rows),
+            'eager_ms': sum(r['eager_ms'] for r in rows),
             'plain_ms': sum(r['plain_ms'] for r in rows),
             'cudnn_bf16_ms': sum(r['cudnn_bf16_ms'] for r in rows),
             'bound_ms': max(ops_s, bytes_s) * 1e3,
             'bound_by': 'operations' if ops_s >= bytes_s else 'bytes',
-            'int_mm_ms_1x1': sum(r['int_mm_ms'] for r in rows
-                                 if isinstance(r['int_mm_ms'], float)),
-            'kernel_ms_1x1': sum(r['ms'] for r in rows
-                                 if isinstance(r['int_mm_ms'], float))}
+            'int_mm_ms_1x1': sum(r['int_mm_ms'] for r in one),
+            'kernel_ms_1x1': sum(r['ms'] for r in one)}
+    body['tops'] = ops_s * INT8_PEAK_OPS / (body['ms'] * 1e-3) / 1e12
+    body['gbps'] = bytes_s * HBM_BYTES_PER_S / (body['ms'] * 1e-3) / 1e9
+    body['bound_share'] = body['bound_ms'] / body['ms']
     checks = 2 * (len(cases) + 2 * len(convs))  # output and accumulators
+    routes = {}
+    for r in rows:
+        routes[r['route']] = routes.get(r['route'], 0) + 1
     emit('kernel', name='conv2d_int8', cases=checks,
          bitwise_equal=True, max_abs_err=0.0,
          check_batches=[INT8_CHECK_BATCH, BATCH, INT8_TAIL],
-         time_batch=BATCH, timed_shapes=timed,
-         body_per_batch=body, per_conv_log=path)
+         time_batch=BATCH, routes=routes, sass=sass,
+         per_conv=[{k: r[k] for k in ('conv', 'route', 'bn', 'ms', 'tops',
+                                      'gbps', 'bound_share')}
+                   for r in rows],
+         timed_shapes=timed, body_per_batch=body, per_conv_log=path)
     return {'name': 'conv2d_int8', 'route': 'cuda',
             'source': 'pps_tpu_torch/csrc/conv2d_int8.cu',
             'replaces': 'pps_tpu/models/resnet.py:205',
@@ -1471,44 +1495,65 @@ def phase_train_fpn(dev, out_root, decode):
     return cfg, rec, ckpts['final']
 
 
+def fold_stack(decode):
+    """FOLD_IMAGES decoded Market gallery images (a uint8 stack) and their
+    roidb entries."""
+    from pps_tpu_torch.engine import test as test_lib
+    roidb = [e for e in test_lib.roidb_for_test('market1501_test')
+             if e['mark'] == 1][:FOLD_IMAGES]
+    return test_lib.decode_uint8_stack(roidb, decode_fn=decode), roidb
+
+
+def folded_model(dev, final_pkl, dtype):
+    """The flagship yaml's model in ``dtype`` with test_net's pkl: its
+    extraction fn (uint8 wire), params, BN state and BN-folded params."""
+    import torch
+    from pps_tpu_torch.engine import checkpoint as ckpt_lib
+    from pps_tpu_torch.models.folding import fold_conv_bn
+    from pps_tpu_torch.models.model import build_model
+    from pps_tpu_torch.parallel.eval_step import make_extract_fn
+    cfg = variant_cfg(FLAGSHIP_YAML, os.path.join(ROOT, 'build'))
+    cfg.immutable(False)
+    cfg.MODEL.DTYPE = dtype
+    cfg.immutable(True)
+    model = build_model(cfg, device=dev)
+    p, s = model.init(torch.Generator().manual_seed(0))
+    p, s, _ = ckpt_lib.load_checkpoint(final_pkl, model, p, s)
+    w, h = cfg.REID.SCALE
+    fn = make_extract_fn(model, device_preproc=(cfg.PIXEL_MEANS, (h, w)),
+                         device=dev)
+    return fn, p, s, fold_conv_bn(p, s)
+
+
+def events_s(fn):
+    """Seconds of ``fn()`` on the current stream (CUDA events), and its
+    result."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3, out
+
+
 def phase_fold(dev, final_pkl, decode):
     """test_net's trained Market pkl on FOLD_IMAGES gallery decodes at batch
     64: extraction BN-folded against unfolded, float32 and bf16; the
     bf16 rates timed in turns (plain, folded, folded, plain)."""
-    import torch
-    from pps_tpu_torch.engine import checkpoint as ckpt_lib
-    from pps_tpu_torch.engine import test as test_lib
-    from pps_tpu_torch.models.folding import fold_conv_bn
-    from pps_tpu_torch.models.model import build_model
-    from pps_tpu_torch.parallel.eval_step import (make_extract_fn,
-                                                  extract_features)
-    roidb = [e for e in test_lib.roidb_for_test('market1501_test')
-             if e['mark'] == 1][:FOLD_IMAGES]
-    stack = test_lib.decode_uint8_stack(roidb, decode_fn=decode)
+    from pps_tpu_torch.parallel.eval_step import extract_features
+    stack, roidb = fold_stack(decode)
     out = {}
     for dtype in ('float32', 'bfloat16'):
-        cfg = variant_cfg(FLAGSHIP_YAML, os.path.join(ROOT, 'build'))
-        cfg.immutable(False)
-        cfg.MODEL.DTYPE = dtype
-        cfg.immutable(True)
-        model = build_model(cfg, device=dev)
-        p, s = model.init(torch.Generator().manual_seed(0))
-        p, s, _ = ckpt_lib.load_checkpoint(final_pkl, model, p, s)
-        folded = fold_conv_bn(p, s)
-        w, h = cfg.REID.SCALE
-        fn = make_extract_fn(model, device_preproc=(cfg.PIXEL_MEANS, (h, w)),
-                             device=dev)
+        fn, p, s, folded = folded_model(dev, final_pkl, dtype)
         trees = {'plain': p, 'folded': folded}
         feats, secs = {}, {'plain': [], 'folded': []}
         for kind in ('plain', 'folded', 'folded', 'plain'):
             extract_features(fn, trees[kind], s, stack[:BATCH], BATCH)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            feats[kind] = extract_features(fn, trees[kind], s, stack, BATCH)
-            end.record()
-            end.synchronize()
-            secs[kind].append(start.elapsed_time(end) / 1e3)
+            sec, feats[kind] = events_s(lambda: extract_features(
+                fn, trees[kind], s, stack, BATCH))
+            secs[kind].append(sec)
         out[dtype] = (feats, secs)
     (f32, secs32), (b16, secs16) = out['float32'], out['bfloat16']
     err = float(np.max(np.abs(f32['folded'] - f32['plain'])))
@@ -1531,10 +1576,15 @@ def phase_test_int8(dev, out_root, final_pkl, decode, bf16_feats, bf16_run):
     TPU.INT8_CALIB_IMAGES test images, every extraction batch through 53
     int8 kernel launches, the embeddings close to the bf16 run's.
     ``bf16_run`` holds test_net's mAP and extraction rate, reported
-    beside the int8 run's."""
+    beside the int8 run's.  Then the model-bound rates, which the decode
+    threads hide there: FOLD_IMAGES decoded gallery images extracted from
+    the stack, int8 (the run's quantized params) against the BN-folded
+    bf16 flagship, in turns (bf16, int8, int8, bf16)."""
     import torch
     from pps_tpu_torch.engine import test as test_lib
     from pps_tpu_torch.kernels import conv2d_int8 as ck
+    from pps_tpu_torch.parallel.eval_step import (make_extract_fn,
+                                                  extract_features)
     out_dir = os.path.join(out_root, 'test_int8')
     cfg = variant_cfg(INT8_YAML, out_dir)
     seen = {}
@@ -1548,6 +1598,7 @@ def phase_test_int8(dev, out_root, final_pkl, decode, bf16_feats, bf16_run):
             out = fn(*a, **k)
             torch.cuda.synchronize()
             seen[name] = (out, time.perf_counter() - t0)
+            seen[name + '_args'] = a
             return out
         return run
     test_lib.quantize_params_for_dataset = timed('calibrate', quantize)
@@ -1578,6 +1629,23 @@ def phase_test_int8(dev, out_root, final_pkl, decode, bf16_feats, bf16_run):
     single = [ln for ln in _read(log) if ln.startswith('Single Query:')]
     print(single[0], flush=True)
     qp = seen['calibrate'][0]
+    # model-bound: int8 (the run's model and quantized params) against the
+    # folded bf16 flagship on one decoded stack, in turns
+    _, model, _, state = seen['extract_args'][:4]
+    w, h = cfg.REID.SCALE
+    int8_fn = make_extract_fn(model, device_preproc=(cfg.PIXEL_MEANS, (h, w)),
+                              device=dev)
+    bf16_fn, _, bf16_state, bf16_folded = folded_model(dev, final_pkl,
+                                                       'bfloat16')
+    stack, _ = fold_stack(decode)
+    sides = {'int8': (int8_fn, qp, state),
+             'bf16_folded': (bf16_fn, bf16_folded, bf16_state)}
+    stacked = {'int8': [], 'bf16_folded': []}
+    for kind in ('bf16_folded', 'int8', 'int8', 'bf16_folded'):
+        fn, p, s = sides[kind]
+        extract_features(fn, p, s, stack[:BATCH], BATCH)
+        sec, _ = events_s(lambda: extract_features(fn, p, s, stack, BATCH))
+        stacked[kind].append(len(stack) / sec)
     emit('test_int8', config=os.path.relpath(INT8_YAML, ROOT), images=n,
          batches=batches, conv2d_int8_launches=launches,
          quantized_convs=sum(k.endswith('_wq') for k in qp),
@@ -1590,6 +1658,9 @@ def phase_test_int8(dev, out_root, final_pkl, decode, bf16_feats, bf16_run):
          map_bf16=bf16_run['mAP'],
          extract_imgs_per_s_int8=n / extract_s,
          extract_imgs_per_s_bf16=bf16_run['extract_imgs_per_s'],
+         stacked_images=len(stack),
+         stacked_extract_imgs_per_s_int8=stacked['int8'],
+         stacked_extract_imgs_per_s_bf16_folded=stacked['bf16_folded'],
          log=log)
 
 

@@ -490,6 +490,10 @@ INT8_CONVS = [  # (n, c_in, h, w, c_out, k, stride, dilation, groups, per_ch)
     (2, 64, 12, 10, 96, 3, 1, 2, 1, False),    # dilated
     (2, 64, 12, 10, 64, 3, 1, 1, 2, True),     # grouped, per-channel
     (2, 8, 12, 10, 16, 3, 1, 1, 4, True),      # cg 2: the element path
+    (2, 512, 24, 8, 512, 3, 1, 1, 1, False),   # K 4,608, N 512 (res5 3x3)
+    (1, 512, 24, 8, 2048, 1, 1, 1, 1, False),  # N 2,048 (res5 branch2c)
+    (2, 256, 96, 32, 512, 1, 2, 1, 1, False),  # res3's strided 1x1
+    (60, 256, 24, 8, 256, 3, 1, 1, 1, False),  # M of the tail's 60 images
 ]
 
 
@@ -524,6 +528,21 @@ def test_conv2d_int8_kernel_equals_plain(cuda, case):
         bits = {torch.int32: torch.int32, torch.float32: torch.int32,
                 torch.bfloat16: torch.int16}[out_dtype]
         assert torch.equal(got.view(bits), want.view(bits)), out_dtype
+
+
+def test_conv2d_int8_route_is_the_c_entrys(cuda):
+    """The C entry picks the route kernels/conv2d_int8.py:route says, on
+    the R-50 body's convs and every case above."""
+    cfg = flagship_cfg()
+    w_in, h_in = cfg.REID.SCALE
+    from pps_tpu_torch.models import resnet as resnet_lib
+    shapes = [(64,) + c[1:] for c in ck.resnet_body_convs(
+        resnet_lib.resnet_spec(cfg, 50), h_in, w_in)]
+    shapes += [c[:9] for c in INT8_CONVS]
+    for n, cin, h, w, cout, k, s, d, g in shapes:
+        dt = torch.float32 if cin == 3 else torch.bfloat16
+        assert ck.native_route(dt, n, cin, h, w, cout, k, k, s, d, g) == \
+            ck.route(dt, n, cin, h, w, cout, k, k, s, d, g)
 
 
 def test_conv2d_int8_rejects_what_the_kernel_does_not_take(cuda):
