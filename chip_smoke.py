@@ -41,6 +41,21 @@ is non-zero:
               and a pkl checkpoint round trip (bitwise).
 8. train_agree - one step at full width and depth, P 4 x K 2, the same
               draws on both sides: card f32 vs CPU f32, card bf16 vs f32.
+8b. dp_agree - the data-parallel step (``parallel/train_step.py`` over
+              ``parallel/mesh.py``): two ranks on the one card over gloo
+              (child processes of this script, launched as torchrun
+              launches them) against one rank on the same card, float32
+              at full width, global batch P 4 x K 2, from the same state
+              and global draws: the ranks' augmented rows put together
+              equal the 1-rank batch bitwise, the loss within 1e-5, the BN
+              state within 1e-4 (RMS), every update within train_agree's
+              rule; then the triplet term alone, and the triplet term with
+              a planted fault (its 1/world dropped: a doubled gradient),
+              which must fail that rule.
+8c. dp_train - two ranks, bf16 flagship at global batch 64 (32 a rank),
+              3 + 10 steps: ms/step and the gradient all-reduce's share
+              (CUDA events); then one NCCL rank (world size 1) on the same
+              step against phase train's bare step.
 9. profile_train - torch.profiler over 2 train steps (table to stderr).
 10. train_net - ``engine.train.train_model`` on the flagship yaml
               (configs/market1501/pps_crm_triplet_R-50_1x.yaml) over a
@@ -60,6 +75,16 @@ is non-zero:
               decode and the model timed apart), the card's CMC/mAP equal
               the numpy metrics on the same distance matrix, features.pkl
               loads.
+12b. dp_train_net - ``tools.train_net`` on two ranks (one epoch of the
+              flagship yaml at global batch 128): a continuous run; a run
+              whose rank 1 gets a SIGTERM (both ranks exit 75 after the
+              same step, one model_preempt_*.pkl); the same command again,
+              whose first step's loss equals the continuous run's (1e-4);
+              json_stats from rank 0 alone.
+12c. dp_test_net - ``run_inference`` on two ranks with test_net's pkl over
+              the 23,100 test images: rank 0's features against the
+              one-process run's (cosine >= 0.999), its CMC equal to numpy's
+              on its own matrix and its mAP within 1e-6; imgs/s.
 13. remat   - the flagship train step with TPU.REMAT on and off from the
               same state and draws: the same loss and BN state; ms/step
               and peak memory of both.
@@ -90,6 +115,12 @@ is non-zero:
               sub-index equal to its exact scan; the scan's seconds and
               GB/s, one-query latency flat and IVF, k-means and assignment
               seconds, recall@100 at nprobe 8 / 16 / 32, peak memory.
+20b. retrieval_sharded - the same 1M x 3968 int8 gallery as 4 shards on
+              the card through RetrievalIndex(shard=True): the exact scan
+              at 64 and 3,368 queries against the flat and streaming
+              routes, IVF at nprobe 16 with recall@10 equal to the
+              single-device IVF's, and a full probe of the 65,536-row
+              sub-index against the single-device IVF; seconds of each.
 21. test_cuhk03_rerank - ``run_inference`` on the CUHK03 _rerank yaml with
               REID.VIS on and train_cuhk03's pkl: the card's re-ranking
               against the C++ engine on the same matrices (mAP and CMC
@@ -105,7 +136,8 @@ is non-zero:
               endpoint with pps_tpu's JSON keys, 20 sequential and 64
               concurrent /search against an in-process index, /add then
               /remove, SIGTERM with a save, a --load-index restart and
-              ``tools.retrieve`` answering as before.
+              ``tools.retrieve`` answering as before, also with
+              --shard-gallery.
 
 The model variants (after remat, gn_agree; after test_net, the rest, on
 the same synthetic Market set):
@@ -131,9 +163,11 @@ the same synthetic Market set):
               against eager extraction within 1e-6.
 
 The driver phases' own output (json_stats and Single Query lines, logs)
-goes to build/chip_smoke_logs/<phase>.log.  Then a {"kernels": [...]}
+goes to build/chip_smoke_logs/<phase>.log (a rank's to
+<phase>_rank<r>.log).  ``python3 chip_smoke.py --dp-rank CASE DIR`` is
+the process of one rank of a data-parallel phase.  Then a {"kernels": [...]}
 line (launches counted per phase and kernel while the main path, phases
-3, 5, 7, 10-12, 15-23 and 25-29, ran), the nvidia-smi line, and last
+3, 5, 7, 8b-8c, 10-12c, 15-23 and 25-29, ran), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -264,6 +298,9 @@ EXPORT_ATOL = 1e-6                  # a reloaded .pt2 vs eager extraction:
 GN_CHECK_IMAGES = 4
 
 
+_CARD = {}  # 'smi': the card's name and power limit, from phase build
+
+
 def emit(phase, **kw):
     print(json.dumps(dict(phase=phase, **kw)), flush=True)
 
@@ -298,6 +335,7 @@ def phase_build():
     report = build.build_all()
     seconds = time.perf_counter() - t0
     smi = nvidia_smi_line()
+    _CARD['smi'] = smi
     print(smi, flush=True)
     from pps_tpu_torch.tools.conv2d_int8_check import ptxas_table
     ptxas = {n: [ln for ln in r['log'].splitlines()
@@ -594,9 +632,10 @@ def train_batch(gallery, p, k, num_classes, dev):
             'labels_oh': torch.from_numpy(oh).to(dev)}
 
 
-def make_trainer(cfg, dev, seed, residual_gamma=1.0):
+def make_trainer(cfg, dev, seed, residual_gamma=1.0, mesh=None):
     """(model, step, train_state) for ``cfg`` on ``dev`` from a seeded
-    init; ``residual_gamma`` scales each residual branch's last BN."""
+    init; ``residual_gamma`` scales each residual branch's last BN; a
+    distributed ``mesh`` gives the data-parallel step."""
     import torch
     from pps_tpu_torch.models.model import build_model
     from pps_tpu_torch.parallel.train_step import make_train_step
@@ -607,7 +646,7 @@ def make_trainer(cfg, dev, seed, residual_gamma=1.0):
               for k, v in params.items()}
     step = make_train_step(model, cfg, opt.make_param_meta(params, cfg),
                            trainable=opt.trainable_from_cfg(cfg, params),
-                           device=dev)
+                           device=dev, mesh=mesh)
     return model, step, {'params': params, 'state': state,
                          'opt': opt.init_opt_state(params)}
 
@@ -751,7 +790,8 @@ def phase_train_agree(dev, gallery):
                    'dropout_mask': draws['dropout_mask'].to(where)})
         out[name] = (new, float(logs['loss']), time.perf_counter() - t0)
     flagship_cfg()  # the global cfg back to the bf16 flagship
-    (cn, closs, cpu_s), (gn, gloss, _), (_, bloss, _) =         out['cpu'], out['card'], out['card_bf16']
+    (cn, closs, cpu_s), (gn, gloss, _), (_, bloss, _) = (
+        out['cpu'], out['card'], out['card_bf16'])
     loss_rel = abs(gloss - closs) / abs(closs)
     if loss_rel > TRAIN_LOSS_RTOL:
         raise AssertionError('card f32 loss {} vs cpu {}'.format(gloss,
@@ -2424,6 +2464,7 @@ def phase_retrieval_scale(dev):
     fl = flat_topk(qf, g, k=SCALE_K + 1, g_scale=s,
                    g_norm=gallery_norms(g, s))
     held_flat, diff_flat = check_topk('streaming vs flat', st, fl)
+    ref = {'flat64': tuple(a.cpu().numpy() for a in fl)}
     del st, fl
 
     # the two exact routes on each side of RetrievalIndex's gate: one
@@ -2493,6 +2534,8 @@ def phase_retrieval_scale(dev):
                                'seconds': ivf_s}
     del index, g, s, ivf
     torch.cuda.empty_cache()
+    ref.update(q=q_np, exact=(d_ex, i_ex), exact_s=exact_s, cent=cent,
+               recall=recall, routes_ms=routes_ms)
 
     # gate 3: IVF probing every cell with a budget >= N is the exact scan
     sub_index = RetrievalIndex(sub[0], sub[1], int8=True, device=dev)
@@ -2503,6 +2546,8 @@ def phase_retrieval_scale(dev):
     held_ivf, diff_ivf = check_topk(
         'IVF full probe vs exact', sub_index.search(qs, SCALE_K),
         sub_index.search(qs, SCALE_K + 1, exact=True))
+    ref.update(sub=sub, sub_cent=sub_index._ivf['cent'], sub_nlist=sub_nlist,
+               sub_answer=sub_index.search(qs, SCALE_K + 1))
     emit('retrieval_scale', rows=n, dim=SCALE_DIM, dtype='int8',
          gallery_gb=gallery_bytes / 1e9, queries=QUERIES, k=SCALE_K,
          chunk=SCALE_CHUNK, build_s=build_s,
@@ -2528,6 +2573,7 @@ def phase_retrieval_scale(dev):
                          'queries': IVF_GATE_QUERIES,
                          'held_share': held_ivf, 'max_dist_diff': diff_ivf},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return ref
 
 
 def _write_images(paths, decode):
@@ -3019,29 +3065,45 @@ def phase_serve_daemon(dev, final_pkl, roidb, decode):
     if d.stop() != 0:
         raise AssertionError('restarted daemon: non-zero exit')
 
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, '-m', 'pps_tpu_torch.tools.retrieve', '--device',
-         str(dev), '--cfg', FLAGSHIP_YAML, '--weights', final_pkl,
-         '--load-index', idx_npz, '--topk', str(TOPK), '--query',
-         *queries[:VIS_CHECK]],
-        cwd=ROOT, env=_child_env('retrieve'), capture_output=True,
-        text=True, timeout=600)
-    report['retrieve_s'] = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise AssertionError('retrieve: exit {}\n{}'.format(
-            r.returncode, r.stderr[-3000:]))
-    blocks = r.stdout.split('query: ')[1:]
-    if len(blocks) != VIS_CHECK:
-        raise AssertionError('retrieve printed:\n' + r.stdout[-3000:])
-    for i, block in enumerate(blocks):
-        rows = [ln.split() for ln in block.splitlines()[1:] if ln.strip()]
-        got = ([row[2] for row in rows],
-               np.array([float(row[1][2:]) for row in rows]))
+    def retrieve(name, extra=()):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, '-m', 'pps_tpu_torch.tools.retrieve',
+             '--device', str(dev), '--cfg', FLAGSHIP_YAML, '--weights',
+             final_pkl, '--load-index', idx_npz, '--topk', str(TOPK)]
+            + list(extra) + ['--query', *queries[:VIS_CHECK]],
+            cwd=ROOT, env=_child_env(name), capture_output=True,
+            text=True, timeout=600)
+        report[name + '_s'] = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError('{}: exit {}\n{}'.format(
+                name, r.returncode, r.stderr[-3000:]))
+        blocks = r.stdout.split('query: ')[1:]
+        if len(blocks) != VIS_CHECK:
+            raise AssertionError(name + ' printed:\n' + r.stdout[-3000:])
+        out = []
+        for block in blocks:
+            rows = [ln.split() for ln in block.splitlines()[1:]
+                    if ln.strip()]
+            out.append(([row[2] for row in rows],
+                        np.array([float(row[1][2:]) for row in rows])))
+        return out
+
+    plain = retrieve('retrieve')
+    for i, got in enumerate(plain):
         # retrieve embeds its queries as one batch (the bf16 body at another
         # batch size), and prints distances to 4 decimals (5e-5 of rounding)
         _same_ranking('retrieve query {}'.format(i), got, want[i],
                       eps=SERVE_BATCH_ATOL, atol=SERVE_BATCH_ATOL + 5e-5)
+    # the gallery row-sharded (one shard per card it sees) answers as the
+    # unsharded index does: the same embeddings and an exact merge, the
+    # scan on another route (a distance's last bits, printed to 4 decimals)
+    sharded = retrieve('retrieve_sharded', ['--shard-gallery'])
+    for i, got in enumerate(sharded):
+        _same_ranking('retrieve --shard-gallery query {}'.format(i), got,
+                      plain[i], eps=DIST2_ATOL, atol=DIST2_ATOL + 5e-5)
+    report['retrieve_sharded_paths_equal'] = float(np.mean(
+        [a[0] == b[0] for a, b in zip(sharded, plain)]))
     emit('serve_daemon', gallery=SERVE_GALLERY, queries=SERVE_QUERIES,
          k=TOPK, config=os.path.relpath(FLAGSHIP_YAML, ROOT),
          dist_atol=SERVE_DIST_ATOL, batch_atol=SERVE_BATCH_ATOL,
@@ -3049,7 +3111,684 @@ def phase_serve_daemon(dev, final_pkl, roidb, decode):
          **report)
 
 
+# ---------------------------------------------------------------------------
+# data parallel: ranks as child processes of this script, launched as
+# torchrun launches them (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+# MASTER_PORT); two ranks share the one card, so their collectives go over
+# gloo on the CUDA tensors (NCCL refuses two ranks on one device)
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_AGREE_P, DP_AGREE_K = 4, 2       # dp_agree's global batch
+DP_LOSS_RTOL = 1e-5                 # 2 ranks vs 1, float32: the same
+#   math, the BN sums and the loss shares added in another order
+DP_STATE_REL = 1e-4                 # BN running state after one step, by
+#   RMS against its own: the global statistics as sums over the count
+DP_WARMUP, DP_TIMED = 3, 10         # dp_train's steps
+DP_NET_EPOCHS = 1                   # dp_train_net: one epoch at global
+DP_NET_BATCH = BATCH * DP_WORLD     # batch 128 (IMS_PER_BATCH x NUM_GPUS)
+DP_PREEMPT_ITER = 20                # SIGTERM to rank 1 once rank 0 logged
+#   this iteration (a json_stats line every 20)
+DP_TEST_MIN_COS = 0.999             # 2 ranks vs 1 process, bf16: each
+#   image embedded in a batch of another size (cuDNN picks other kernels;
+#   the daemon saw distance differences of 9.2e-4 for the same reason)
+DP_TIMEOUT_S = 600
+
+
+def _rank_device(dev):
+    """The device every rank of a phase takes: this card (cuda:0), or the
+    CPU in a rehearsal."""
+    dev = str(dev)
+    return dev + ':0' if dev == 'cuda' else dev
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+class _Ranks(object):
+    """``world`` ranks of ``python3 chip_smoke.py --dp-rank CASE DIR`` with
+    ``payload`` pickled into DIR; each rank's output goes to
+    build/chip_smoke_logs/<phase>_rank<r>.log (a file, never a pipe: a
+    full pipe would block a rank inside a collective)."""
+
+    def __init__(self, phase, case, payload, world=DP_WORLD, extra=None):
+        import pickle
+        self.dir = os.path.join(ROOT, 'build', 'chip_smoke_dp', phase)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        os.makedirs(self.dir)
+        with open(os.path.join(self.dir, 'payload.pkl'), 'wb') as f:
+            pickle.dump(payload, f)
+        port = _free_port()
+        self.logs, self.procs = [], []
+        for r in range(world):
+            env = _child_env('{}_rank{}'.format(phase, r))
+            env.update(RANK=str(r), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(r), MASTER_ADDR='localhost',
+                       MASTER_PORT=str(port))
+            log = os.path.join(ROOT, 'build', 'chip_smoke_logs',
+                               '{}_rank{}.log'.format(phase, r))
+            self.logs.append(log)
+            with open(log, 'w') as f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), '--dp-rank',
+                     case, self.dir] + list(extra or ()), stdout=f,
+                    stderr=subprocess.STDOUT, cwd=ROOT, env=env,
+                    start_new_session=True))
+        self.t0 = time.perf_counter()
+
+    def kill(self):
+        import signal
+        for p in self.procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+    def wait(self, ok=(0,)):
+        """Wait for every rank (killing all at DP_TIMEOUT_S); raise unless
+        each exited with a code in ``ok``.  Returns the exit codes."""
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(1.0, DP_TIMEOUT_S -
+                                   (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            self.kill()
+        codes = [p.returncode for p in self.procs]
+        if any(c not in ok for c in codes):
+            tails = '\n'.join('--- rank {} exit {}\n{}'.format(
+                r, c, '\n'.join(_read(self.logs[r])[-40:]))
+                for r, c in enumerate(codes))
+            raise AssertionError('ranks exited {}:\n{}'.format(codes, tails))
+        return codes
+
+    def results(self, ok=(0,)):
+        """Wait (see ``wait``), then each rank's pickled result."""
+        import pickle
+        self.wait(ok)
+        out = []
+        for r in range(len(self.procs)):
+            with open(os.path.join(self.dir, 'out{}.pkl'.format(r)),
+                      'rb') as f:
+                out.append(pickle.load(f))
+        return out
+
+
+@contextlib.contextmanager
+def triplet_only():
+    """The softmax CE terms zeroed (the CRM off by cfg): only the triplet
+    term trains, the term every rank computes in full over the gathered
+    features, whose gradient doubles if the gather's backward sums without
+    the 1/world."""
+    from pps_tpu_torch.models import losses
+    ce = losses.softmax_ce_losses
+
+    def zeroed(logits, labels, denom=None):
+        loss, acc = ce(logits, labels, denom)
+        return loss * 0.0, acc
+    losses.softmax_ce_losses = zeroed
+    try:
+        yield
+    finally:
+        losses.softmax_ce_losses = ce
+
+
+@contextlib.contextmanager
+def triplet_not_over_world(world):
+    """A planted fault: the triplet term's weight times the world size,
+    which undoes the train step's 1/world (``model.train_forward``): the
+    gradient that the triplet-only gate must catch."""
+    from pps_tpu_torch.models import losses
+    weight = losses.TRIPLET_WEIGHT
+    losses.TRIPLET_WEIGHT = weight * world
+    try:
+        yield
+    finally:
+        losses.TRIPLET_WEIGHT = weight
+
+
+def _dp_step(cfg, dev, mesh, batch_np, seed, triplet=None):
+    """One train step of the flagship on ``dev`` from the seeded init of
+    ``make_trainer`` (residual scales 0.01; on ``mesh``: this rank's rows
+    of the global ``batch_np``), the draws from a generator seeded
+    ``seed``.  triplet: None (every loss), 'only' or 'planted' (the
+    triplet term alone, without or with the planted fault).  Returns
+    (start params on the host, new state, logs, the augmented rows)."""
+    import torch
+    from pps_tpu_torch.parallel import train_step as ts_lib
+    model, step, ts = make_trainer(cfg, dev, seed=1, residual_gamma=0.01,
+                                   mesh=mesh)
+    ts = ts_lib.place_train_state(mesh, ts)
+    start = {k: v.cpu() for k, v in ts['params'].items()}
+    batch = ts_lib.shard_batch(mesh, {k: torch.as_tensor(v).to(dev)
+                                      for k, v in batch_np.items()})
+    seen = []
+    fwd = model.train_forward
+
+    def record(p, s, b, *a, **k):
+        seen.append(b['data'].detach().cpu().numpy())
+        return fwd(p, s, b, *a, **k)
+    model.train_forward = record
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with contextlib.ExitStack() as stack:
+        if triplet:
+            stack.enter_context(triplet_only())
+        if triplet == 'planted':
+            stack.enter_context(triplet_not_over_world(
+                1 if mesh is None else mesh.world_size))
+        ts, logs = step(ts, batch, 0.01, 1.0, gen)
+    return start, ts, logs, seen[0]
+
+
+def _rel_rms(got, want, floor=0.0):
+    return _rms(got - want) / (_rms(want) + floor)
+
+
+def _dp_updates(start, two, one):
+    """The worst relative RMS errors of the 2-rank step's displacement and
+    momentum against the 1-rank step's, under train_agree's rule (each
+    tensor's RMS + TRAIN_FLOOR of the RMS over all displacements); and the
+    first tensor outside TRAIN_REL, or None."""
+    import torch
+    disp1 = {k: one['params'][k].cpu() - start[k] for k in start}
+    floor = TRAIN_FLOOR * _rms(torch.cat([d.flatten()
+                                          for d in disp1.values()]))
+    worst, bad = {'params': 0.0, 'momentum': 0.0}, None
+    for k in start:
+        e = _rel_rms(two['params'][k].cpu() - start[k], disp1[k],
+                     floor / TRAIN_REL)
+        em = _rel_rms(two['opt']['momentum'][k].cpu(),
+                      one['opt']['momentum'][k].cpu(), floor / TRAIN_REL)
+        worst['params'] = max(worst['params'], e)
+        worst['momentum'] = max(worst['momentum'], em)
+        if bad is None and (e > TRAIN_REL or em > TRAIN_REL):
+            bad = '{} ({}, {})'.format(k, e, em)
+    return worst, bad
+
+
+def dp_rank_agree(p, mesh, dev):
+    """Rank side of dp_agree: the 2-rank step, then (rank 0) the 1-rank
+    step on the same card from the same state and draws, compared; the
+    planted fault's 2-rank step against the triplet-only 1-rank step must
+    fail the comparison."""
+    from pps_tpu_torch.config import merge_cfg_from_list
+    from pps_tpu_torch.flagship import flagship_cfg
+    from pps_tpu_torch.parallel import collectives
+    out, one_rank = {}, {}
+    for name, triplet in (('full', None), ('triplet_only', 'only'),
+                          ('triplet_planted', 'planted')):
+        cfg = flagship_cfg(dtype='float32', ims_per_batch=p['batch_n'],
+                           p=DP_AGREE_P, k=DP_AGREE_K)
+        cfg.immutable(False)
+        merge_cfg_from_list(['REID.CRM', 'False'] if triplet else [])
+        cfg.immutable(True)
+        start, two, logs2, rows = _dp_step(cfg, dev, mesh, p['batch'],
+                                           seed=5, triplet=triplet)
+        rows = collectives.gather_host_rows(rows, mesh)
+        if mesh.rank:
+            continue
+        if triplet == 'planted':
+            # against the sound triplet-only 1-rank step
+            worst, bad = _dp_updates(start, two, one_rank['only'])
+            if bad is None:
+                raise AssertionError(
+                    'the triplet-only gate passed a doubled triplet '
+                    'gradient (worst {})'.format(worst))
+            out[name] = {'worst_rel': worst, 'caught_at': bad}
+            continue
+        _, one, logs1, rows1 = _dp_step(cfg, dev, None, p['batch'], seed=5,
+                                        triplet=triplet)
+        one_rank[triplet] = one
+        if not np.array_equal(rows, rows1):
+            raise AssertionError('{}: the ranks\' augmented rows differ from '
+                                 'the 1-rank batch'.format(name))
+        l2, l1 = float(logs2['loss']), float(logs1['loss'])
+        if abs(l2 - l1) > DP_LOSS_RTOL * abs(l1):
+            raise AssertionError('{}: loss 2 ranks {} 1 rank {}'.format(
+                name, l2, l1))
+        worst, bad = _dp_updates(start, two, one)
+        if bad is not None:
+            raise AssertionError('{}: 2 ranks vs 1 after one step: {}'.format(
+                name, bad))
+        worst['state'] = 0.0
+        for k in one['state']:
+            e = _rel_rms(two['state'][k].cpu(), one['state'][k].cpu())
+            worst['state'] = max(worst['state'], e)
+            if e > DP_STATE_REL:
+                raise AssertionError('{}: BN state {} ({})'.format(name, k,
+                                                                   e))
+        out[name] = {'loss_2_ranks': l2, 'loss_1_rank': l1,
+                     'loss_rel': abs(l2 - l1) / abs(l1), 'worst_rel': worst,
+                     'rows_bitwise': True}
+    return out
+
+
+def dp_rank_train(p, mesh, dev):
+    """Rank side of dp_train: DP_WARMUP + DP_TIMED bf16 steps at the
+    global batch, timed by CUDA events; then the gradient's all-reduce
+    alone, timed the same way."""
+    import torch
+    import torch.distributed as dist
+    from pps_tpu_torch.flagship import flagship_cfg
+    from pps_tpu_torch.parallel import collectives
+    from pps_tpu_torch.parallel import train_step as ts_lib
+    cfg = flagship_cfg()
+    _, step, ts = make_trainer(cfg, dev, seed=0, mesh=mesh)
+    ts = ts_lib.place_train_state(mesh, ts)
+    batch = ts_lib.shard_batch(mesh, {k: torch.as_tensor(v).to(dev)
+                                      for k, v in p['batch'].items()})
+    init_rm = ts['state']['res_conv1_bn_rm'].clone()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    events, losses = [], []
+    for it in range(DP_WARMUP + DP_TIMED):
+        if it >= DP_WARMUP:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        ts, logs = step(ts, batch, 0.01, 1.0, gen)
+        losses.append(logs['loss'])
+    events.append(torch.cuda.Event(enable_timing=True))
+    events[-1].record()
+    events[-1].synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(events[:-1], events[1:])]
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError('non-finite loss {}'.format(losses))
+    if torch.equal(ts['state']['res_conv1_bn_rm'], init_rm):
+        raise AssertionError('the BN state did not move')
+    grads = [torch.zeros_like(v) for v in ts['params'].values()]
+    collectives.all_reduce_flat_(grads, mesh)  # warm
+    ar = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        collectives.all_reduce_flat_(grads, mesh)
+        b.record()
+        b.synchronize()
+        ar.append(a.elapsed_time(b))
+    ms = float(np.median(step_ms))
+    return {'backend': dist.get_backend(), 'world': mesh.world_size,
+            'batch_per_rank': int(batch['labels_int32'].shape[0]),
+            'ms_per_step': ms, 'ms_min': min(step_ms),
+            'ms_max': max(step_ms), 'losses': [float(v) for v in losses],
+            'grad_mb': sum(g.numel() for g in grads) * 4 / 1e6,
+            'allreduce_ms': float(np.median(ar)),
+            'allreduce_share': float(np.median(ar)) / ms}
+
+
+def _market_on(p):
+    """A rank's view of the synthetic Market set: the parent's catalog
+    entries, and decodes made from the file names (no image files)."""
+    from pps_tpu_torch.data import catalog, transforms
+    for name, (imdir, ann) in p['datasets'].items():
+        catalog.register_dataset(name, imdir, ann)
+    transforms.decode_image = MarketDecoder()
+
+
+def dp_rank_train_net(p):
+    """Rank side of dp_train_net: ``tools.train_net``'s own main (which
+    sets the process group up from torchrun's variables) with each step's
+    loss and start recorded.  Returns (exit code, record)."""
+    import torch
+    from pps_tpu_torch.tools import train_net
+    _market_on(p)
+    code = 0
+    with StepRecorder() as rec:
+        try:
+            train_net.main(p['argv'])
+        except SystemExit as e:
+            code = e.code
+    out = {'code': code, 'losses': [float(v) for v in rec.losses],
+           'at': rec.at}
+    if len(rec.events) > 1:
+        torch.cuda.synchronize()
+        out['step_ms'] = [a.elapsed_time(b) for a, b in
+                          zip(rec.events[:-1], rec.events[1:])]
+    return code, out
+
+
+def dp_rank_test_net(p, mesh, dev):
+    """Rank side of dp_test_net: ``run_inference`` on this rank's rows of
+    every global batch; rank 0 returns the results and the extraction's
+    seconds."""
+    import torch
+    from pps_tpu_torch.config import (cfg, merge_cfg_from_file,
+                                      merge_cfg_from_list, reset_cfg)
+    from pps_tpu_torch.engine import test as test_lib
+    _market_on(p)
+    reset_cfg()
+    merge_cfg_from_file(FLAGSHIP_YAML)
+    merge_cfg_from_list(['OUTPUT_DIR', p['out']])
+    seen = {}
+    extract = test_lib.extract_dataset_features
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = extract(*a, **k)
+        torch.cuda.synchronize()
+        seen['extract_s'] = time.perf_counter() - t0
+        return feats
+    test_lib.extract_dataset_features = timed
+    results = test_lib.run_inference(cfg, weights_file=p['weights'],
+                                     output_dir=p['out'], device=dev)
+    return {'results': results, 'extract_s': seen['extract_s']}
+
+
+DP_CASES = {'agree': dp_rank_agree, 'train': dp_rank_train,
+            'test_net': dp_rank_test_net}
+
+
+def dp_rank_main(case, workdir):
+    """A rank of a data-parallel phase (``--dp-rank CASE DIR``): reads
+    DIR/payload.pkl, writes DIR/out<rank>.pkl and its kernel launch
+    counts, exits with the case's code."""
+    import pickle
+    from pps_tpu_torch.kernels import write_launch_counts
+    from pps_tpu_torch.parallel import mesh as mesh_lib
+    with open(os.path.join(workdir, 'payload.pkl'), 'rb') as f:
+        payload = pickle.load(f)
+    rank = int(os.environ['RANK'])
+    code = 0
+    try:
+        if case == 'train_net':
+            code, out = dp_rank_train_net(payload)
+        else:
+            dev = mesh_lib.init_distributed(device=payload['device'],
+                                            backend=payload.get('backend'))
+            mesh = mesh_lib.build_mesh(device=dev)
+            print('rank {}: {}, staging: none (gloo copies CUDA tensors '
+                  'through host memory itself)'.format(rank, mesh),
+                  flush=True)
+            out = DP_CASES[case](payload, mesh, dev)
+        with open(os.path.join(workdir, 'out{}.pkl'.format(rank)),
+                  'wb') as f:
+            pickle.dump(out, f)
+    finally:
+        write_launch_counts()
+        mesh_lib.destroy_distributed()
+    return code
+
+
+def _numpy_batch(gallery, p, k):
+    """``train_batch`` on the host for the flagship's classes, as numpy
+    (a payload for the ranks); leaves the global cfg the flagship's."""
+    from pps_tpu_torch.flagship import flagship_cfg
+    return {n: v.numpy() for n, v in train_batch(
+        gallery, p, k, flagship_cfg().MODEL.NUM_CLASSES, 'cpu').items()}
+
+
+def phase_dp_agree(dev, gallery):
+    """Two ranks on the card over gloo against one rank on the same card,
+    float32 at full width, global batch P 4 x K 2: the augmented rows,
+    the loss, the BN state and the updates; then the triplet term alone,
+    and with the planted fault, which the same rule must refuse."""
+    n = DP_AGREE_P * DP_AGREE_K
+    t0 = time.perf_counter()
+    r0 = _Ranks('dp_agree', 'agree', {
+        'device': _rank_device(dev),
+        'batch': _numpy_batch(gallery, DP_AGREE_P, DP_AGREE_K),
+        'batch_n': n}).results()[0]
+    emit('dp_agree', world=DP_WORLD, global_batch=n, dtype='float32',
+         backend='gloo', residual_gamma=0.01, loss_rtol=DP_LOSS_RTOL,
+         state_rel=DP_STATE_REL, rel=TRAIN_REL, floor=TRAIN_FLOOR,
+         wall_s=time.perf_counter() - t0, card=_CARD.get('smi'), **r0)
+
+
+def phase_dp_train(dev, gallery, bare_ms):
+    """Two ranks on the card over gloo, bf16 flagship at global batch 64:
+    ms/step and the gradient all-reduce's share; then one NCCL rank (world
+    size 1) on the same step, against phase train's bare step."""
+    card = _rank_device(dev)
+    batch = _numpy_batch(gallery, TRAIN_P, TRAIN_K)
+    t0 = time.perf_counter()
+    two = _Ranks('dp_train', 'train', {'device': card,
+                                       'batch': batch}).results()
+    nccl = _Ranks('dp_train_nccl', 'train', {
+        'device': card, 'batch': batch, 'backend': 'nccl'},
+        world=1).results()[0]
+    if nccl['backend'] != 'nccl' or two[0]['backend'] != 'gloo':
+        raise AssertionError('backends {} / {}'.format(two[0]['backend'],
+                                                       nccl['backend']))
+    emit('dp_train', world=DP_WORLD, global_batch=TRAIN_P * TRAIN_K,
+         dtype='bfloat16', steps=DP_TIMED, warmup=DP_WARMUP,
+         ranks=two, nccl_world1=nccl, bare_step_ms=bare_ms,
+         nccl_vs_bare=nccl['ms_per_step'] / bare_ms,
+         wall_s=time.perf_counter() - t0, card=_CARD.get('smi'),
+         note='2 ranks share one H100: a check that the path works, not a '
+              'scaling figure')
+
+
+def _market_datasets():
+    from pps_tpu_torch.data import catalog
+    return {n: (catalog.get_im_dir(n), catalog.get_ann_fn(n))
+            for n in ('market1501_trainval', 'market1501_test')}
+
+
+def phase_dp_train_net(dev, out_root):
+    """``tools.train_net`` on two ranks (flagship yaml, one epoch at global
+    batch 128): a continuous run; a run whose rank 1 gets a SIGTERM once
+    rank 0 logged iteration DP_PREEMPT_ITER; the same command again."""
+    import signal
+    card = _rank_device(dev)
+
+    def payload(out_dir):
+        return {'datasets': _market_datasets(), 'argv': [
+            '--device', card, '--skip-test', '--cfg', FLAGSHIP_YAML,
+            'TRAIN.WEIGHTS', "''", 'SOLVER.MAX_ITER', str(DP_NET_EPOCHS),
+            'NUM_GPUS', str(DP_WORLD), 'OUTPUT_DIR', out_dir]}
+
+    t0 = time.perf_counter()
+    ranks = _Ranks('dp_train_net', 'train_net',
+                   payload(os.path.join(out_root, 'dp_cont')))
+    cont = ranks.results()
+    cont_s = time.perf_counter() - t0
+    json_lines = [sum(ln.startswith('json_stats:') for ln in _read(log))
+                  for log in ranks.logs]
+    if json_lines[0] == 0 or any(json_lines[1:]):
+        raise AssertionError('json_stats lines by rank: {}'.format(
+            json_lines))
+    pre_dir = os.path.join(out_root, 'dp_pre')
+    ranks = _Ranks('dp_train_net_pre', 'train_net', payload(pre_dir))
+    mark = '"iter": {},'.format(DP_PREEMPT_ITER)
+    try:
+        while not any(mark in ln for ln in _read(ranks.logs[0])):
+            if any(p.poll() is not None for p in ranks.procs) or \
+                    time.perf_counter() - ranks.t0 > DP_TIMEOUT_S:
+                raise AssertionError('rank 0 never logged iteration {}'
+                                     .format(DP_PREEMPT_ITER))
+            time.sleep(0.2)
+        ranks.procs[1].send_signal(signal.SIGTERM)
+    except BaseException:
+        ranks.kill()
+        raise
+    pre = ranks.results(ok=(75,))
+    codes = [p.returncode for p in ranks.procs]
+    steps = [len(r['losses']) for r in pre]
+    if len(set(steps)) != 1:
+        raise AssertionError('ranks stopped after {} steps'.format(steps))
+    train_dir = os.path.join(pre_dir, 'train', 'market1501_trainval')
+    preempt = [n for n in os.listdir(train_dir)
+               if n.startswith('model_preempt_')]
+    if preempt != ['model_preempt_epoch0_step{}.pkl'.format(steps[0])]:
+        raise AssertionError('resume points {}'.format(preempt))
+    resumed = _Ranks('dp_train_net_resume', 'train_net',
+                     payload(pre_dir)).results()
+    first, want = resumed[0]['losses'][0], cont[0]['losses'][steps[0]]
+    rel = abs(first - want) / abs(want)
+    if rel > RESUME_LOSS_RTOL or resumed[0]['at'][0] != (0, steps[0]):
+        raise AssertionError('resumed at {} loss {} vs continuous {}'.format(
+            resumed[0]['at'][0], first, want))
+    ms = float(np.median(cont[0]['step_ms']))
+    emit('dp_train_net', config=os.path.relpath(FLAGSHIP_YAML, ROOT),
+         world=DP_WORLD, global_batch=DP_NET_BATCH, epochs=DP_NET_EPOCHS,
+         steps=len(cont[0]['losses']), ms_per_step=ms,
+         imgs_per_s=DP_NET_BATCH / ms * 1e3, continuous_wall_s=cont_s,
+         json_stats_lines_by_rank=json_lines, preempt_exit_codes=codes,
+         preempted_after_steps=steps[0], resume_point=preempt[0],
+         resumed_steps=len(resumed[0]['losses']), first_resumed_loss=first,
+         continuous_loss=want, loss_rel=rel, loss_rtol=RESUME_LOSS_RTOL,
+         loss_first=cont[0]['losses'][0], loss_last=cont[0]['losses'][-1],
+         wall_s=time.perf_counter() - t0, card=_CARD.get('smi'),
+         note='2 ranks share one H100: a check that the path works, not a '
+              'scaling figure')
+
+
+def phase_dp_test_net(dev, out_root, final_pkl, feats_one):
+    """``run_inference`` on two ranks over the Market-sized test split
+    with test_net's pkl: rank 0's features against the one-process run's,
+    its CMC and mAP against numpy's on its own matrix."""
+    import torch
+    from pps_tpu_torch.engine import test as test_lib
+    from pps_tpu_torch.evaluation import evaluator as ev
+    from pps_tpu_torch.evaluation import metrics
+    from pps_tpu_torch.ops.distance import euclidean_distmat
+    from pps_tpu_torch.utils.io import load_object
+    out_dir = os.path.join(out_root, 'dp_test_net')
+    t0 = time.perf_counter()
+    r0 = _Ranks('dp_test_net', 'test_net', {
+        'device': _rank_device(dev),
+        'datasets': _market_datasets(), 'weights': final_pkl,
+        'out': out_dir}).results()[0]
+    wall = time.perf_counter() - t0
+    feats = load_object(os.path.join(out_dir, 'features.pkl'))['all_feats']
+    if feats.shape != feats_one.shape or not np.isfinite(feats).all():
+        raise AssertionError('features {}'.format(feats.shape))
+    cos = np.sum(feats * feats_one, axis=1) / (
+        np.linalg.norm(feats, axis=1) * np.linalg.norm(feats_one, axis=1))
+    if cos.min() < DP_TEST_MIN_COS:
+        raise AssertionError('2 ranks vs 1: cosine {}'.format(cos.min()))
+    roidb = test_lib.roidb_for_test('market1501_test')
+    marks = np.array([e['mark'] for e in roidb])
+    ids = np.array([ev.parse_im_name(e['im_name'], 'id') for e in roidb])
+    cams = np.array([ev.parse_im_name(e['im_name'], 'cam') for e in roidb])
+    q, g = marks == 0, marks == 1
+    ft = torch.as_tensor(feats, device=dev)
+    host = euclidean_distmat(ft[torch.as_tensor(q, device=dev)],
+                             ft[torch.as_tensor(g, device=dev)]).cpu().numpy()
+    m_np = metrics.mean_ap(host, ids[q], ids[g], cams[q], cams[g])
+    c_np = metrics.cmc(host, ids[q], ids[g], cams[q], cams[g], topk=10,
+                       **ev.CMC_KWARGS)
+    single = r0['results']['market1501_test']['single']
+    if not np.array_equal(single['cmc'], c_np) or \
+            abs(single['mAP'] - m_np) > MAP_ATOL:
+        raise AssertionError('rank 0 mAP {} CMC {} vs numpy {} {}'.format(
+            single['mAP'], single['cmc'][:5], m_np, c_np[:5]))
+    n = len(roidb)
+    emit('dp_test_net', world=DP_WORLD, images=n, mAP=single['mAP'],
+         cmc1=single['cmc1'], map_numpy=m_np, cmc_equal=True,
+         min_cos_vs_one_process=float(cos.min()),
+         min_cos=DP_TEST_MIN_COS, extract_s=r0['extract_s'],
+         extract_imgs_per_s=n / r0['extract_s'], wall_s=wall,
+         card=_CARD.get('smi'),
+         note='2 ranks share one H100: a check that the path works, not a '
+              'scaling figure')
+
+
+RET_SHARDS = 4                      # retrieval_sharded: shards on the card
+RET_SHARD_NPROBE = 16               # the IVF recall held equal
+
+
+def _scale_feats(dev):
+    """retrieval_scale's float32 gallery rows (the same seeds), on the
+    card in one tensor, and their paths."""
+    import torch
+    centres = scale_centres(dev)
+    parts = []
+    for c in range(SCALE_ROWS // SCALE_BUILD):
+        rows = torch.arange(c * SCALE_BUILD, (c + 1) * SCALE_BUILD,
+                            device=dev)
+        parts.append(scale_rows(centres, rows // SCALE_PER_ID,
+                                SCALE_SEED + 1 + c))
+    return torch.cat(parts), ['g%07d' % r for r in range(SCALE_ROWS)]
+
+
+def phase_retrieval_sharded(dev, ref):
+    """retrieval_scale's 1M x 3968 int8 gallery as RET_SHARDS shards on the
+    one card, through RetrievalIndex(shard=True): the exact scan at 64 and
+    3,368 queries against the flat and streaming routes, IVF at nprobe 16
+    (recall@10 equal to the single-device IVF's), and a full probe of the
+    65,536-row sub-index against the single-device IVF."""
+    import torch
+    from pps_tpu_torch.engine.serving import RetrievalIndex
+    from pps_tpu_torch.parallel.mesh import build_mesh
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = build_mesh(devices=[_rank_device(dev)] * RET_SHARDS)
+    t0 = time.perf_counter()
+    feats, paths = _scale_feats(dev)
+    index = RetrievalIndex(feats, paths, mesh=mesh, int8=True, shard=True,
+                           device=dev)
+    del feats
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if len(index._g) != RET_SHARDS or len(index) != SCALE_ROWS:
+        raise AssertionError('{} shards, {} rows'.format(len(index._g),
+                                                         len(index)))
+    q_np = ref['q']
+    nf = SCALE_FLAT_QUERIES
+    (d64, i64), s64 = _timed(index.search, q_np[:nf], SCALE_K)
+    held64, diff64 = check_topk('sharded vs flat (64 queries)', (d64, i64),
+                                ref['flat64'])
+    (d_all, i_all), s_all = _timed(index.search, q_np, SCALE_K)
+    held_all, diff_all = check_topk('sharded vs streaming (all queries)',
+                                    (d_all, i_all), ref['exact'])
+
+    # IVF at nprobe 16 over the sharded gallery: the single-device
+    # clustering and budget; recall@10 against the exact answer
+    nr = IVF_RECALL_QUERIES
+    budget = ref['recall'][str(RET_SHARD_NPROBE)]['budget']
+    _, install_s = _timed(index._install_ivf, ref['cent'],
+                          nprobe=RET_SHARD_NPROBE, budget=budget,
+                          spill_limit=None, train={})
+    (_, ids), ivf_s = _timed(index.search, q_np[:nr], SCALE_K)
+    hits10 = [len(np.intersect1d(a[:10], b[:10]))
+              for a, b in zip(ids, ref['exact'][1][:nr])]
+    recall10 = float(np.mean(hits10)) / 10
+    want10 = ref['recall'][str(RET_SHARD_NPROBE)]['recall_at_10']
+    if recall10 != want10:
+        raise AssertionError('sharded IVF recall@10 {} vs single-device '
+                             '{}'.format(recall10, want10))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del index
+    torch.cuda.empty_cache()
+
+    # the 65,536-row sub-index, every cell probed with a full budget
+    sub = RetrievalIndex(ref['sub'][0], ref['sub'][1], mesh=mesh, int8=True,
+                         shard=True, device=dev)
+    sub._install_ivf(ref['sub_cent'], nprobe=ref['sub_nlist'],
+                     budget=IVF_SUB_ROWS, spill_limit=None, train={})
+    got, sub_s = _timed(sub.search, q_np[:IVF_GATE_QUERIES], SCALE_K)
+    held_sub, diff_sub = check_topk('sharded IVF vs single-device IVF',
+                                    got, ref['sub_answer'])
+    same_sub = float(np.mean(got[1] == ref['sub_answer'][1][:, :SCALE_K]))
+    emit('retrieval_sharded', rows=SCALE_ROWS, shards=RET_SHARDS,
+         shard_device=_rank_device(dev), dtype='int8', k=SCALE_K,
+         build_s=build_s,
+         exact_64={'queries': nf, 'seconds': s64, 'held_share': held64,
+                   'max_dist_diff': diff64,
+                   'unsharded_flat_ms': ref['routes_ms'][str(nf)]['flat']},
+         exact_all={'queries': len(q_np), 'seconds': s_all,
+                    'held_share': held_all, 'max_dist_diff': diff_all,
+                    'unsharded_streaming_s': ref['exact_s']},
+         ivf={'nprobe': RET_SHARD_NPROBE, 'budget': budget,
+              'queries': nr, 'recall_at_10': recall10,
+              'single_device_recall_at_10': want10, 'install_s': install_s,
+              'seconds': ivf_s},
+         ivf_full_probe={'rows': IVF_SUB_ROWS, 'queries': IVF_GATE_QUERIES,
+                         'held_share': held_sub, 'max_dist_diff': diff_sub,
+                         'index_equal_share': same_sub, 'seconds': sub_s},
+         tie_eps=TIE_EPS, dist_atol=SCAN_DIST_ATOL, peak_mem_gb=peak,
+         card=_CARD.get('smi'))
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == '--dp-rank':
+        return dp_rank_main(sys.argv[2], sys.argv[3])  # a rank's process
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -3099,6 +3838,9 @@ def main():
     torch.cuda.empty_cache()
     phase_train_agree(dev, gallery)
     torch.cuda.empty_cache()
+    # the data-parallel step: two ranks on the card over gloo, one NCCL rank
+    driven('dp_agree', phase_dp_agree, dev, gallery)
+    driven('dp_train', phase_dp_train, dev, gallery, bare_ms)
     phase_remat(dev, gallery)
     torch.cuda.empty_cache()
     phase_gn_agree(dev)
@@ -3122,6 +3864,11 @@ def main():
     shutil.copyfile(final_pkl, market_pkl)  # for the serving daemon
     del rec, gallery
     torch.cuda.empty_cache()
+    # the drivers on two ranks: tools.train_net (preempted, resumed) and
+    # run_inference with test_net's pkl
+    driven('dp_train_net', phase_dp_train_net, dev, out_root)
+    driven('dp_test_net', phase_dp_test_net, dev, out_root, market_pkl,
+           market_feats)
 
     # main path, part 3b: the model variants on the same synthetic Market
     # set: FPN through the drivers, BN folding, int8, the export tool
@@ -3167,7 +3914,10 @@ def main():
     del duke_rec, cuhk_rec, feats, roidb
 
     # main path, part 5: retrieval at gallery scale, re-ranking, the daemon
-    driven('retrieval_scale', phase_retrieval_scale, dev)
+    ref = driven('retrieval_scale', phase_retrieval_scale, dev)
+    driven('retrieval_sharded', phase_retrieval_sharded, dev, ref)
+    del ref
+    torch.cuda.empty_cache()
     driven('test_cuhk03_rerank', phase_test_cuhk03_rerank, dev, out_root,
            cuhk_pkl, cuhk)
     driven('rerank_market', phase_rerank_market, dev, market_feats,

@@ -359,8 +359,8 @@ def get_output_dir(datasets, training=True):
         datasets, (tuple, list)) else str(datasets)
     tag = 'train' if training else 'test'
     outdir = os.path.join(__C.OUTPUT_DIR, tag, dataset_name)
-    if not os.path.exists(outdir):
-        os.makedirs(outdir)
+    # the ranks of a data mesh make it at once
+    os.makedirs(outdir, exist_ok=True)
     return outdir
 
 

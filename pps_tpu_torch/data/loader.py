@@ -22,6 +22,15 @@ epoch, step), never by worker, so a batch does not depend on thread
 scheduling.  ``wire_dtype='bfloat16'`` (``TPU.WIRE_DTYPE``) casts the
 host chain's 'data' to bfloat16 in the worker, before the copy; the uint8
 wires have nothing to cast.
+
+Over a data mesh (``mesh``, one process per rank) every rank runs the
+same seeded plan of GLOBAL batches (``TRAIN.IMS_PER_BATCH x NUM_GPUS``
+images, ``REID.P x NUM_GPUS`` identities) and decodes only its own rows of
+each, so the ranks agree without communicating.  The host chain takes the
+global batch's draws in plan order, the rows ahead of this rank's first
+(``minibatch.get_minibatch``'s ``ahead``), so the ranks' rows put together
+are the one-process batch; the uint8 wires draw on the device, for the
+global batch.
 """
 
 import logging
@@ -34,6 +43,7 @@ import torch
 from pps_tpu_torch.data import minibatch as minibatch_lib
 from pps_tpu_torch.data.sampler import EpochSchedule, PermSampler, PKSampler
 from pps_tpu_torch.device import Transfer
+from pps_tpu_torch.parallel import mesh as mesh_lib
 
 logger = logging.getLogger(__name__)
 
@@ -41,14 +51,16 @@ logger = logging.getLogger(__name__)
 class ReIDLoader(object):
     def __init__(self, roidb, cfg, num_workers=None, prefetch=None,
                  seed=None, decode_fn=None, device=None, raw=True,
-                 device_prefetch=None, wire_dtype='float32'):
+                 device_prefetch=None, wire_dtype='float32', mesh=None):
         """num_workers / prefetch / device_prefetch default from
         DATA_LOADER: NUM_THREADS decode workers, MINIBATCH_QUEUE_SIZE host
         batches prepared ahead, BLOBS_QUEUE_CAPACITY device batches copied
         ahead.  ``device`` None yields host batches; a device yields dicts
         of tensors there.  ``raw``: the uint8 wires when the metadata
-        allows them (see the module docstring)."""
+        allows them (see the module docstring).  ``mesh``: a distributed
+        data mesh; the batches are this rank's rows."""
         self._roidb = roidb
+        self._mesh = mesh if mesh is not None and mesh.distributed else None
         self._cfg = cfg
         if num_workers is None:
             num_workers = cfg.DATA_LOADER.NUM_THREADS
@@ -87,6 +99,9 @@ class ReIDLoader(object):
         labels = [e['gt_class'] - 1 for e in roidb]
         n_ids = len(set(labels))
         self.schedule = EpochSchedule(cfg, len(roidb), n_ids)
+        if self._mesh is not None:
+            # raises unless the global batch splits over the ranks
+            mesh_lib.local_rows(self._mesh, self.schedule.global_batch)
         self._perm = PermSampler(len(roidb), self.schedule.global_batch,
                                  seed=self._seed)
         self._pk = None
@@ -132,11 +147,16 @@ class ReIDLoader(object):
                 rng = np.random.RandomState(
                     (self._seed * 1000003 + self._cur_ep * 10007 + i)
                     % (2 ** 31))
+                ahead = []
+                if self._mesh is not None:
+                    start, stop = mesh_lib.local_rows(self._mesh, len(idx))
+                    ahead = [self._roidb[j] for j in idx[:start]]
+                    idx = idx[start:stop]
                 entries = [self._roidb[j] for j in idx]
                 batch = minibatch_lib.get_minibatch(
                     entries, self._cfg, train=True,
                     decode_fn=self._decode_fn, raw=self._raw,
-                    raw_pad_hw=self._raw_pad_hw, rng=rng)
+                    raw_pad_hw=self._raw_pad_hw, rng=rng, ahead=ahead)
                 if self._bf16_wire and 'data' in batch:
                     # numpy has no bfloat16: torch casts on the host
                     batch['data'] = torch.from_numpy(batch['data']).to(
@@ -193,7 +213,9 @@ class ReIDLoader(object):
                     self._plan_q.put((issued, plan[issued]))
                     issued += 1
                 if mode == 'pk':
-                    self._check_pk(batch['labels_int32'])
+                    # the global batch's composition, from the plan
+                    self._check_pk([self._roidb[j]['gt_class'] - 1
+                                    for j in plan[step][3]])
                 if self._transfer is not None:
                     put = self._transfer.put
                     dev = dev_ready.pop(step, None)

@@ -34,8 +34,16 @@ def fits_bucket(ims, pad_hw):
                for im in ims)
 
 
+def _shape_of(entry, decode_fn):
+    """An entry's decode shape: from its height/width metadata, else from
+    its decode."""
+    if entry.get('height') is not None and entry.get('width') is not None:
+        return (int(entry['height']), int(entry['width']), 3)
+    return decode_fn(entry['image']).shape
+
+
 def get_minibatch(roidb_entries, cfg, train=True, decode_fn=None, raw=True,
-                  raw_pad_hw=None, rng=None):
+                  raw_pad_hw=None, rng=None, ahead=()):
     """Decode a list of roidb entries into a batch with 'labels_int32'
     [B] (identity - 1) and 'labels_oh' [B, NUM_CLASSES - 1], plus
 
@@ -48,6 +56,12 @@ def get_minibatch(roidb_entries, cfg, train=True, decode_fn=None, raw=True,
     * otherwise the host chain: 'data' [B, H, W, 3] float32, BGR, mean
       subtracted, resized to REID.SCALE; with ``train``, augmented with
       draws from ``rng`` (a ``numpy.random.RandomState``).
+
+    ahead: the entries of the global batch before these (a data rank's
+    rows).  On the host chain their draws are taken from ``rng`` first,
+    so each row gets the draws that one process augmenting the whole
+    global batch gives it; they are not decoded when their metadata has
+    the size.
     """
     decode_fn = decode_fn or transforms.decode_image
     w, h = cfg.REID.SCALE
@@ -76,6 +90,12 @@ def get_minibatch(roidb_entries, cfg, train=True, decode_fn=None, raw=True,
                          'numpy.random.RandomState)')
     data = np.empty((b, h, w, 3), np.float32)
     pixel_means = np.asarray(cfg.PIXEL_MEANS)
+    if train:
+        for entry in ahead:
+            # each op's draws depend on the image's shape alone: a blank
+            # of that shape takes the row's draws
+            transforms.augment(np.zeros(_shape_of(entry, decode_fn),
+                                        np.uint8), rng, cfg)
     for i, (entry, im) in enumerate(zip(roidb_entries, ims)):
         if entry.get('flipped'):
             im = im[:, ::-1, :]

@@ -25,8 +25,12 @@ A group of mixed decode sizes, or of another size than the one pinned,
 is preprocessed on the host (float32) and embedded by the same model on
 the device.
 
-Not ported: a gallery sharded over several devices (``shard=True`` or a
-mesh; ROADMAP slice 8).  It raises.
+``RetrievalIndex(shard=True, mesh=...)`` row-shards the gallery over the
+shards of a single-process mesh (``parallel/mesh.build_mesh(devices=
+[...])``, one shard per card, or several on one card) and searches through
+``parallel/retrieval.py``'s exact cross-shard merge; IVF composes with it
+(every cell dealt round-robin over the shards).  An ``add`` or ``remove``
+re-places the shards from the host mirror.
 """
 
 import glob
@@ -47,13 +51,12 @@ from pps_tpu_torch.ops import ivf as ivf_ops
 from pps_tpu_torch.ops.topk import (flat_topk, gallery_norms,
                                     quantize_gallery, streaming_topk)
 from pps_tpu_torch.parallel import eval_step as es_lib
+from pps_tpu_torch.parallel import retrieval as ret_lib
 
 logger = logging.getLogger(__name__)
 
 GALLERY_CACHE_NAME = 'gallery_features.npz'
 
-_SHARD_TODO = ('a gallery sharded over several devices is not ported yet '
-               '(ROADMAP slice 8: multi-GPU)')
 
 
 def _euclidean(a, b):
@@ -268,23 +271,40 @@ def embed_gallery_cached(cfg, model, params, state, gallery_dir,
 
 def build_index_from_args(cfg, model, params, state, *, gallery=None,
                           load_index=None, int8=False, shard=False,
-                          weights_path=None, refresh=False, device=None):
+                          weights_path=None, refresh=False, device=None,
+                          mesh=None):
     """The load-index-vs-embed-gallery bootstrap shared by the serving
     CLIs.  Raises ValueError when neither source is given (the CLIs map
-    that to parser.error())."""
-    if shard:
-        raise NotImplementedError(_SHARD_TODO)
+    that to parser.error()).  ``shard``: row-shard the gallery over
+    ``mesh``, default one shard per card this process sees."""
+    if shard and mesh is None:
+        mesh = default_shard_mesh(device)
     if load_index:
         if int8:
             logger.warning('--int8-gallery is ignored with --load-index: '
                            'the stored rows carry their own precision')
-        return RetrievalIndex.load(load_index, device=device)
+        return RetrievalIndex.load(load_index, mesh=mesh, shard=shard,
+                                   device=device)
     if not gallery:
         raise ValueError('--gallery is required unless --load-index')
     g_feats, g_paths = embed_gallery_cached(
         cfg, model, params, state, gallery, weights_path=weights_path,
         refresh=refresh)
-    return RetrievalIndex(g_feats, g_paths, int8=int8, device=device)
+    return RetrievalIndex(g_feats, g_paths, mesh=mesh, int8=int8,
+                          shard=shard, device=device)
+
+
+def default_shard_mesh(device=None):
+    """A single-process mesh with one shard per card this process sees
+    (the CPU's one shard when ``device`` is the CPU)."""
+    from pps_tpu_torch.parallel import mesh as mesh_lib
+    device = resolve_device(device)
+    if device.type == 'cuda':
+        devices = ['cuda:{}'.format(i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device]
+    return mesh_lib.build_mesh(devices=devices)
 
 
 class Overloaded(RuntimeError):
@@ -643,8 +663,8 @@ class RetrievalIndex:
 
     def __init__(self, feats, paths, mesh=None, int8=True, shard=False,
                  device=None):
-        if shard or mesh is not None:
-            raise NotImplementedError(_SHARD_TODO)
+        if shard and mesh is None:
+            raise ValueError('shard=True needs a mesh')
         self.device = resolve_device(device)
         if not torch.is_tensor(feats):
             feats = np.asarray(feats, np.float32)
@@ -657,8 +677,8 @@ class RetrievalIndex:
                              'grow it with add()')
         self.paths = list(paths)
         self.int8 = bool(int8)
-        self.shard = False
-        self.mesh = None
+        self.shard = bool(shard)
+        self.mesh = mesh
         g, s = self._stored(feats)
         self._host_g = g.cpu().numpy()
         self._host_s = None if s is None else s.cpu().numpy()
@@ -674,6 +694,8 @@ class RetrievalIndex:
         self._g, self._s = g, s
         self._gn = None
         self._n = len(self.paths)
+        if self.shard:
+            self._place()
 
     def _stored(self, feats):
         """(rows, scales or None) as stored, tensors on the device; int8
@@ -698,7 +720,13 @@ class RetrievalIndex:
 
     def _place(self):
         self._gn = None        # row norms follow the device layout
-        if self._ivf is not None:
+        if self.shard and self._ivf is not None:
+            self._place_ivf_sharded()
+        elif self.shard:
+            self._g, self._s, self._n = ret_lib.shard_gallery(
+                self._host_g, self.mesh, int8=self.int8,
+                g_scale=self._host_s)
+        elif self._ivf is not None:
             self._place_ivf()
         else:
             self._g = torch.as_tensor(self._host_g, device=self.device)
@@ -742,6 +770,17 @@ class RetrievalIndex:
         ivf['spill_ids'] = np.zeros((0,), np.int32)
         self._n = len(self.paths)
 
+    def _place_ivf_sharded(self):
+        """The sharded IVF placement: every cell's rows dealt round-robin
+        over the shards (``parallel/retrieval.shard_ivf_gallery``), with
+        no spill segment (an add re-places, as the sharded gallery
+        does)."""
+        ivf = self._ivf
+        ivf['placed'] = ret_lib.shard_ivf_gallery(
+            self._host_g, ivf['assign'], ivf['nlist'], self.mesh,
+            g_scale=self._host_s)
+        self._n = len(self.paths)
+
     def enable_ivf(self, nlist=None, nprobe=8, budget=None, iters=10,
                    seed=0, sample=262144, spill_limit=None):
         """Cluster the gallery and switch ``search`` to IVF probing.
@@ -783,17 +822,24 @@ class RetrievalIndex:
                             expect_gen, self._ivf_gen)
                 return False
             ng = len(self.paths)
-            # device rows are in device-layout order (original order when
-            # IVF is off; sorted + spill when re-training)
-            if self._ivf is None:
-                cur_layout = np.arange(ng, dtype=np.int64)
+            cur_layout = None
+            if self.shard:
+                assign = np.asarray(ivf_ops.assign_clusters(
+                    self._host_g, cent, g_scale=self._host_s,
+                    device=self.device), np.int32)
             else:
-                cur_layout = np.concatenate(
-                    [self._ivf['perm'],
-                     self._ivf['spill_ids']]).astype(np.int64)
-            a_dev = ivf_ops.assign_clusters(self._g, cent, g_scale=self._s)
-            assign = np.empty(ng, np.int32)
-            assign[cur_layout] = a_dev
+                # device rows are in device-layout order (original order
+                # when IVF is off; sorted + spill when re-training)
+                if self._ivf is None:
+                    cur_layout = np.arange(ng, dtype=np.int64)
+                else:
+                    cur_layout = np.concatenate(
+                        [self._ivf['perm'],
+                         self._ivf['spill_ids']]).astype(np.int64)
+                a_dev = ivf_ops.assign_clusters(self._g, cent,
+                                                g_scale=self._s)
+                assign = np.empty(ng, np.int32)
+                assign[cur_layout] = a_dev
             if budget is None:
                 budget = min(ng, max(2048, 4 * nprobe * max(ng, 1)
                                      // max(nlist, 1)))
@@ -808,7 +854,10 @@ class RetrievalIndex:
                 'trained_n': ng,  # rows present at install
                 'train': train,   # recipe for re-training
             }
-            self._place_ivf(device_layout=cur_layout)
+            if self.shard:
+                self._place_ivf_sharded()
+            else:
+                self._place_ivf(device_layout=cur_layout)
             self._ivf_gen += 1
             log_np, log_bg = self._ivf['nprobe'], self._ivf['budget']
         logger.info('IVF installed: %d cells, nprobe=%d, budget=%d',
@@ -1006,7 +1055,19 @@ class RetrievalIndex:
             # compiled per k; results are sliced back to k_req below
             k = min(self._n, 1 << (k_req - 1).bit_length())
             qt = torch.as_tensor(q, device=self.device)
-            if self._ivf is not None and not exact:
+            if self.shard and self._ivf is not None:
+                ivf = self._ivf
+                d, i = ret_lib.sharded_ivf_topk(
+                    qt, ivf['cent'], ivf['placed'], k=k,
+                    nprobe=ivf['nprobe'], budget=ivf['budget'], chunk=chunk,
+                    exact=exact)
+                d, i = d.cpu().numpy(), i.cpu().numpy()
+            elif self.shard:
+                d, i = ret_lib.sharded_topk(
+                    qt, self._g, ng_total=self._n, k=k, chunk=chunk,
+                    recall_target=recall_target, g_scale=self._s)
+                d, i = d.cpu().numpy(), i.cpu().numpy()
+            elif self._ivf is not None and not exact:
                 d, i = self._search_ivf(qt, k, chunk)
             else:
                 if q.shape[0] * self._n <= self.FLAT_SCAN_MAX_ELEMS:
@@ -1170,17 +1231,18 @@ class RetrievalIndex:
     @classmethod
     def load(cls, path, mesh=None, shard=False, device=None):
         """Rebuild an index from a ``save`` file (either package's) and
-        place it on ``device``.  int8-ness travels with the file."""
-        if shard or mesh is not None:
-            raise NotImplementedError(_SHARD_TODO)
+        place it on ``device`` (row-sharded over ``mesh`` with ``shard``).
+        int8-ness travels with the file."""
+        if shard and mesh is None:
+            raise ValueError('shard=True needs a mesh')
         data = np.load(path, allow_pickle=True)
         int8 = bool(data['int8'])
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.paths = list(data['paths'])
         self.int8 = int8
-        self.shard = False
-        self.mesh = None
+        self.shard = bool(shard)
+        self.mesh = mesh
         self._host_g = np.ascontiguousarray(
             data['gallery'], np.int8 if int8 else np.float32)
         self._host_s = (np.ascontiguousarray(data['scale'], np.float32)
@@ -1219,7 +1281,8 @@ class RetrievalIndex:
         there when int8); the cached row norms grow by the new rows'
         norms.  Under IVF the new rows are assigned to their cells and
         join the spill tail, which is folded into the sorted layout once
-        it outgrows ``spill_limit``."""
+        it outgrows ``spill_limit``.  A sharded index re-places its shards
+        from the host mirror."""
         if not torch.is_tensor(feats):
             feats = np.asarray(feats, np.float32)
         if feats.ndim == 1:
@@ -1241,22 +1304,31 @@ class RetrievalIndex:
                                                 g_scale=new_s)
                 self._ivf['assign'] = np.concatenate(
                     [self._ivf['assign'], new_a])
-            self._g = torch.cat([self._g, new_g])
-            if new_s is not None:
-                self._s = torch.cat([self._s, new_s])
-            if self._gn is not None:
-                self._gn = torch.cat(
-                    [self._gn, gallery_norms(new_g, new_s)])
-            self._n = len(self.paths)
-            if self._ivf is not None:
-                ivf = self._ivf
-                ivf['spill_ids'] = np.concatenate(
-                    [ivf['spill_ids'],
-                     np.arange(n_before, len(self.paths), dtype=np.int32)])
-                if len(ivf['spill_ids']) > ivf['spill_limit']:
-                    logger.info('IVF spill at %d rows; re-sorting',
-                                len(ivf['spill_ids']))
-                    self._place_ivf(device_layout=np.concatenate(
-                        [ivf['perm'], ivf['spill_ids']]))
+            if self.shard:
+                self._place()  # the shards are re-placed from the mirror
+            else:
+                self._append(new_g, new_s, n_before)
         # outside the lock: may start a background re-train thread
         self._maybe_auto_retrain()
+
+    def _append(self, new_g, new_s, n_before):
+        """Append stored rows to the unsharded device placement (under the
+        lock): the cached row norms grow by the new rows' norms, and under
+        IVF the new rows join the spill tail, folded into the sorted
+        layout once it outgrows ``spill_limit``."""
+        self._g = torch.cat([self._g, new_g])
+        if new_s is not None:
+            self._s = torch.cat([self._s, new_s])
+        if self._gn is not None:
+            self._gn = torch.cat([self._gn, gallery_norms(new_g, new_s)])
+        self._n = len(self.paths)
+        if self._ivf is not None:
+            ivf = self._ivf
+            ivf['spill_ids'] = np.concatenate(
+                [ivf['spill_ids'],
+                 np.arange(n_before, len(self.paths), dtype=np.int32)])
+            if len(ivf['spill_ids']) > ivf['spill_limit']:
+                logger.info('IVF spill at %d rows; re-sorting',
+                            len(ivf['spill_ids']))
+                self._place_ivf(device_layout=np.concatenate(
+                    [ivf['perm'], ivf['spill_ids']]))

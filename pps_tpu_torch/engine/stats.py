@@ -20,8 +20,11 @@ class TrainingStats(object):
     LOG_PERIOD = 20
     WIN_SZ = 20
 
-    def __init__(self, max_iter, log_period=None, device=None):
+    def __init__(self, max_iter, log_period=None, device=None, emit=True):
+        """emit False: drain and check the logs at each line's step, but
+        print nothing (the ranks after rank 0 of a data mesh)."""
         self.max_iter = max_iter
+        self.emit = emit
         if log_period:
             self.LOG_PERIOD = log_period
         self.device = torch.device('cpu' if device is None else device)
@@ -75,6 +78,8 @@ class TrainingStats(object):
         if (force or cur_iter % self.LOG_PERIOD == 0
                 or cur_iter == self.max_iter - 1):
             self._drain()
+            if not self.emit:
+                return
             stats = self.GetStats(cur_iter, lr)
             if extra:
                 stats.update(extra)

@@ -1,5 +1,5 @@
-"""Inference and evaluation engine on one device (counterpart of
-``pps_tpu/engine/test.py``).
+"""Inference and evaluation engine (counterpart of
+``pps_tpu/engine/test.py``), on one device or over a data mesh.
 
 Test images are decoded on the host by a thread pool, shipped as raw uint8
 and preprocessed, embedded and scored on the device.  The tail batch is
@@ -19,7 +19,13 @@ rank-list images to ``<output_dir>/vis/``.  ``TPU.INT8_EVAL`` extracts
 through the int8 body (``models/quantize.py``), calibrated on the first
 ``TPU.INT8_CALIB_IMAGES`` test images.
 
-Not ported: orbax weights (ROADMAP slice 8); they raise.
+Over a data mesh (a process group, one rank per card) every rank runs
+``run_inference``: each extracts its rows of every global batch
+(``TEST.IMS_PER_BATCH x`` the world size, the tail padded), rank 0 gathers
+the features, evaluates them and writes ``features.pkl``, and the other
+ranks return.  ``TPU.INT8_EVAL`` calibrates alike on every rank.
+
+Not ported: orbax weights (ROADMAP slice 9); they raise.
 """
 
 import collections
@@ -39,7 +45,9 @@ from pps_tpu_torch.device import Transfer, resolve_device
 from pps_tpu_torch.engine import checkpoint as ckpt_lib
 from pps_tpu_torch.evaluation import evaluator as eval_lib
 from pps_tpu_torch.models.model import build_model
+from pps_tpu_torch.parallel import collectives
 from pps_tpu_torch.parallel import eval_step as eval_step_lib
+from pps_tpu_torch.parallel import mesh as mesh_lib
 from pps_tpu_torch.utils.io import save_object
 from pps_tpu_torch.utils.timer import Timer
 
@@ -98,7 +106,7 @@ def decode_uint8_stack(roidb, decode_fn=None, num_workers=None):
 
 def stream_extract(cfg, model, params, state, roidb, batch_size,
                    decode_fn=None, flip_tta=False, device_preproc=True,
-                   num_workers=None, prefetch=3):
+                   num_workers=None, prefetch=3, mesh=None):
     """Streaming extraction in O(prefetch x batch) host memory: threads
     decode whole batches ahead (cv2 releases the GIL), each batch goes to
     the device on a side stream while the previous one computes.  Returns
@@ -117,6 +125,10 @@ def stream_extract(cfg, model, params, state, roidb, batch_size,
     The run keeps one uint8 shape (the JAX package's rule, where each
     shape compiles a graph), so a metadata-less mixed set does not mix
     wires at random.  The count of each kind is logged at the end.
+
+    ``batch_size`` is the global batch.  Under a distributed ``mesh`` each
+    rank decodes and embeds only its rows of every (tail-padded) global
+    batch, and the features come back on every rank, in row order.
     """
     decode_fn = decode_fn or transforms.decode_image
     w, h = cfg.REID.SCALE
@@ -136,34 +148,38 @@ def stream_extract(cfg, model, params, state, roidb, batch_size,
     u8_shape = []  # the first uniform raw shape pins the uint8 wire
 
     def prep(start):
-        ims = [decode_fn(e['image']) for e in roidb[start:start + batch_size]]
-        pad = batch_size - len(ims)
+        # the tail batch is padded with its last image, then each rank
+        # takes its rows of the global batch
+        idx = list(range(start, min(start + batch_size, len(roidb))))
+        idx += idx[-1:] * (batch_size - len(idx))
+        if mesh is not None and mesh.distributed:
+            idx = idx[slice(*mesh_lib.local_rows(mesh, batch_size))]
+        ims = [decode_fn(roidb[j]['image']) for j in idx]
         if pad_hw is not None and fits_bucket(ims, pad_hw):
-            padded, valid = pad_to_bucket(ims, pad_hw)
-            return 'u8p', (_tail_pad(padded, pad), _tail_pad(valid, pad)), pad
+            return 'u8p', pad_to_bucket(ims, pad_hw)
         if device_preproc and all(im.shape == ims[0].shape for im in ims):
             # list append is atomic under the GIL; a racing second shape
             # only sends that batch to the host path
             if not u8_shape:
                 u8_shape.append(ims[0].shape)
             if ims[0].shape == u8_shape[0]:
-                return 'u8', (_tail_pad(np.stack(ims), pad),), pad
+                return 'u8', (np.stack(ims),)
         out = np.empty((len(ims), h, w, 3), np.float32)
         for i, im in enumerate(ims):
             out[i] = transforms.prep_im_for_blob(im, pixel_means, (w, h))
-        return 'f32', (_tail_pad(out, pad),), pad
+        return 'f32', (out,)
 
     starts = list(range(0, len(roidb), batch_size))
     kinds = collections.Counter()
     out, futs = [], deque()
-    pending = None  # (features tensor, pad)
+    pending = None  # features tensor
     with ThreadPoolExecutor(max(1, _default_workers(num_workers))) as pool:
         issued = 0
         for _ in range(min(prefetch, len(starts))):
             futs.append(pool.submit(prep, starts[issued]))
             issued += 1
         for _ in starts:
-            kind, arrays, pad = futs.popleft().result()
+            kind, arrays = futs.popleft().result()
             if issued < len(starts):
                 futs.append(pool.submit(prep, starts[issued]))
                 issued += 1
@@ -172,23 +188,22 @@ def stream_extract(cfg, model, params, state, roidb, batch_size,
             feats = fns[kind](params, state, *[dev[i] for i in
                                                range(len(arrays))])
             if pending is not None:
-                pf, ppad = pending
-                out.append(pf.cpu().numpy()[:batch_size - ppad])
-            pending = (feats, pad)
+                out.append(pending.cpu().numpy())
+            pending = feats
     if pending is not None:
-        pf, ppad = pending
-        out.append(pf.cpu().numpy()[:batch_size - ppad])
+        out.append(pending.cpu().numpy())
     logger.info('stream_extract batch kinds: %s',
                 json.dumps({k: kinds[k] for k in ('u8p', 'u8', 'f32')}))
-    return (np.concatenate(out, axis=0) if out
-            else np.zeros((0, model.embedding_dim), np.float32))
-
-
-def _tail_pad(a, pad):
-    """Pad the batch dimension by repeating the last row ``pad`` times."""
-    if not pad:
-        return a
-    return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)], axis=0)
+    if not out:
+        return np.zeros((0, model.embedding_dim), np.float32)
+    local = np.concatenate(out, axis=0)
+    if mesh is not None and mesh.distributed:
+        # [world, batches, rows, E] -> global row order
+        full = collectives.gather_host_rows(local, mesh)
+        local = full.reshape((mesh.world_size, len(starts), -1) +
+                             full.shape[1:]).transpose(1, 0, 2, 3).reshape(
+                                 (-1,) + full.shape[1:])
+    return local[:len(roidb)]
 
 
 def default_eval_batch(cfg, n_dev=1, batch_size=None):
@@ -202,11 +217,13 @@ def default_eval_batch(cfg, n_dev=1, batch_size=None):
 
 def extract_dataset_features(cfg, model, params, state, roidb,
                              decode_fn=None, batch_size=None, flip_tta=None,
-                             device_preproc=None, streaming=None):
+                             device_preproc=None, streaming=None, mesh=None):
     """[N, E] float32 numpy features of ``roidb`` on ``model.device``:
     streamed (``TPU.STREAMING_EVAL``, the default) or from one decoded
-    stack."""
-    batch_size = default_eval_batch(cfg, 1, batch_size)
+    stack.  Under a distributed ``mesh`` the ranks split every global
+    batch and each gets every feature back."""
+    world = mesh.world_size if mesh is not None else 1
+    batch_size = default_eval_batch(cfg, world, batch_size)
     if flip_tta is None:
         flip_tta = bool(cfg.TEST.BBOX_AUG.ENABLED and cfg.TEST.BBOX_AUG.H_FLIP)
     if device_preproc is None:
@@ -218,7 +235,7 @@ def extract_dataset_features(cfg, model, params, state, roidb,
     if streaming:
         feats = stream_extract(cfg, model, params, state, roidb, batch_size,
                                decode_fn=decode_fn, flip_tta=flip_tta,
-                               device_preproc=device_preproc)
+                               device_preproc=device_preproc, mesh=mesh)
         t_total = timer.toc(average=False)
         logger.info('Extracted %d features (streaming): %.1fs '
                     '(%.1f imgs/s)', len(roidb), t_total,
@@ -242,7 +259,7 @@ def extract_dataset_features(cfg, model, params, state, roidb,
     t_prep = timer.toc(average=False)
     timer.tic()
     feats = eval_step_lib.extract_features(extract, params, state, images,
-                                           batch_size)
+                                           batch_size, mesh=mesh)
     t_extract = timer.toc(average=False)
     logger.info('Extracted %d features: decode %.1fs, extract %.1fs '
                 '(%.1f imgs/s)', len(roidb), t_prep, t_extract,
@@ -264,12 +281,16 @@ def quantize_params_for_dataset(cfg, model, params, state, roidb,
 
 
 def test_net(cfg, weights_file, dataset_name, output_dir=None,
-             decode_fn=None, device=None):
+             decode_fn=None, device=None, mesh=None):
     """Extract the features of a test dataset; write features.pkl to
-    ``output_dir``.  Returns (features, roidb)."""
+    ``output_dir`` (rank 0 alone under a distributed ``mesh``, whose
+    device is the model's).  Returns (features, roidb)."""
     if weights_file and str(weights_file).endswith('.orbax'):
         raise NotImplementedError(
-            'orbax weights are not ported (ROADMAP slice 8: multi-GPU)')
+            'orbax weights are not ported (ROADMAP slice 9: sharded '
+            'checkpoints)')
+    if mesh is not None:
+        device = mesh.device
     model = build_model(cfg, device=device)
     params, state = model.init(torch.Generator().manual_seed(cfg.RNG_SEED))
     if weights_file:
@@ -280,8 +301,8 @@ def test_net(cfg, weights_file, dataset_name, output_dir=None,
         params = quantize_params_for_dataset(cfg, model, params, state,
                                              roidb, decode_fn=decode_fn)
     feats = extract_dataset_features(cfg, model, params, state, roidb,
-                                     decode_fn=decode_fn)
-    if output_dir:
+                                     decode_fn=decode_fn, mesh=mesh)
+    if output_dir and (mesh is None or mesh.rank == 0):
         os.makedirs(output_dir, exist_ok=True)
         feat_file = os.path.join(output_dir, 'features.pkl')
         save_object(dict(all_feats=feats, cfg=ckpt_lib.dump_cfg(cfg)),
@@ -333,8 +354,14 @@ def run_inference(cfg, weights_file=None, output_dir=None, decode_fn=None,
                   device=None):
     """The test_net driver: features and metrics for every dataset of
     ``TEST.DATASETS``.  Returns {dataset: results}.  Without an
-    ``output_dir`` the artifacts go to <OUTPUT_DIR>/test/<dataset>/."""
+    ``output_dir`` the artifacts go to <OUTPUT_DIR>/test/<dataset>/.
+    Under a process group every rank calls it (``device`` is the rank's
+    own); rank 0 evaluates and returns the results, the others {}."""
     weights_file = weights_file or cfg.TEST.WEIGHTS
+    mesh = mesh_lib.build_mesh(cfg, device=device)
+    # a model axis above 1 raises (ROADMAP slice 9)
+    mesh_lib.check_data_only(mesh)
+    device = mesh.device
     from pps_tpu_torch.config import get_output_dir
     results = {}
     datasets = cfg.TEST.DATASETS
@@ -343,7 +370,8 @@ def run_inference(cfg, weights_file=None, output_dir=None, decode_fn=None,
     for ds in datasets:
         ds_out = output_dir or get_output_dir((ds,), training=False)
         feats, roidb = test_net(cfg, weights_file, ds, output_dir=ds_out,
-                                decode_fn=decode_fn, device=device)
-        results[ds] = evaluate_dataset(cfg, feats, roidb, output_dir=ds_out,
-                                       device=device)
+                                decode_fn=decode_fn, mesh=mesh)
+        if mesh.rank == 0:
+            results[ds] = evaluate_dataset(cfg, feats, roidb,
+                                           output_dir=ds_out, device=device)
     return results

@@ -1,5 +1,6 @@
-"""Training driver on one device: epoch loop, LR feed, checkpoints,
-auto-resume and preemption (counterpart of ``pps_tpu/engine/train.py``).
+"""Training driver: epoch loop, LR feed, checkpoints, auto-resume and
+preemption (counterpart of ``pps_tpu/engine/train.py``), on one device or
+over a data mesh of one process per card.
 
 One ``make_train_step`` call per iteration; the TRIPLET_LOSS_CROSS
 alternation comes from the pure ``EpochSchedule``; the momentum is
@@ -19,8 +20,18 @@ lines.
   were, so an epoch's final state needs no device copy.  Its D2H copies
   start on a side stream into pinned memory; one background writer waits
   for them, then pickles, with one write in flight.
-* Not ported: orbax checkpoints (``TPU.CKPT_FORMAT: orbax``), multi-GPU
-  and multi-process training, and the jaxpr dump (ROADMAP slice 8).
+* Over a data mesh (a ``torch.distributed`` process group, one rank per
+  card, as ``torchrun`` launches them; ``parallel/mesh.py``) every rank
+  runs this loop on its rows of each global batch and holds the same
+  state (rank 0's, broadcast before the first step).  Rank 0 alone writes
+  the pkl snapshots, ``model_final.pkl`` and the ``json_stats`` lines;
+  every rank resumes from the same pkl.  A SIGTERM to any rank stops every
+  rank after the same step (the flag is agreed each step over a gloo
+  group of host tensors, with no device sync), with one
+  ``model_preempt_*.pkl``.  The ranks pass a store barrier between
+  building and the first step.
+* Not ported: orbax checkpoints (``TPU.CKPT_FORMAT: orbax``), the model
+  axis, and the jaxpr dump (ROADMAP slice 9).
 """
 
 import logging
@@ -35,17 +46,19 @@ import torch
 
 from pps_tpu_torch.data.json_dataset import combined_roidb_for_training
 from pps_tpu_torch.data.loader import ReIDLoader
-from pps_tpu_torch.device import resolve_device
 from pps_tpu_torch.engine import checkpoint as ckpt_lib
 from pps_tpu_torch.engine.stats import TrainingStats
 from pps_tpu_torch.models.model import build_model
+from pps_tpu_torch.parallel import collectives
+from pps_tpu_torch.parallel import mesh as mesh_lib
 from pps_tpu_torch.parallel import train_step as ts_lib
 from pps_tpu_torch.solver import lr_policy
 from pps_tpu_torch.solver import optimizer as opt_lib
 
 logger = logging.getLogger(__name__)
 
-_MULTI_TODO = '{} is not ported yet (ROADMAP slice 8: multi-GPU)'
+_MULTI_TODO = ('{} is not ported yet (ROADMAP slice 9: the model axis, '
+               'sharded checkpoints and the graph dump)')
 
 # SIGTERM (maintenance events, spot capacity) sets this flag; the loop
 # checkpoints after the in-flight step and raises `Preempted`, so a
@@ -114,16 +127,13 @@ def create_model(cfg, output_dir, device=None):
 
 
 def _check_ported(cfg):
+    if int(cfg.TPU.MESH_SHAPE[1]) > 1:
+        raise NotImplementedError(_MULTI_TODO.format(
+            'A model axis above 1 (TPU.MESH_SHAPE {})'.format(
+                tuple(cfg.TPU.MESH_SHAPE))))
     if cfg.TPU.CKPT_FORMAT != 'pkl':
         raise NotImplementedError(_MULTI_TODO.format(
             'TPU.CKPT_FORMAT {}'.format(cfg.TPU.CKPT_FORMAT)))
-    if cfg.NUM_GPUS != 1:
-        raise NotImplementedError(_MULTI_TODO.format(
-            'NUM_GPUS {}'.format(cfg.NUM_GPUS)))
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()):
-        raise NotImplementedError(_MULTI_TODO.format(
-            'Multi-process training'))
     if os.environ.get('PPS_TPU_DUMP_JAXPR'):
         raise NotImplementedError(_MULTI_TODO.format(
             'The jaxpr dump (PPS_TPU_DUMP_JAXPR)'))
@@ -171,9 +181,16 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
     model, its steps and its data live on ``device`` (default CUDA).
     ``PPS_TPU_PROFILE_DIR`` set: a ``torch.profiler`` trace of global
     steps [5, 15) is written there as a Chrome trace.
+
+    Under a process group every rank calls this with the same arguments
+    (``device`` is the rank's own; default ``cuda:<LOCAL_RANK>``); the
+    global batch is ``TRAIN.IMS_PER_BATCH x NUM_GPUS`` split over the
+    ranks.
     """
     _check_ported(cfg)
-    device = resolve_device(device)
+    mesh = mesh_lib.build_mesh(cfg, device=device)
+    device = mesh.device
+    chief = mesh.rank == 0
     if output_dir is None:
         from pps_tpu_torch.config import get_output_dir
         output_dir = get_output_dir(cfg.TRAIN.DATASETS, training=True)
@@ -193,20 +210,21 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
     # TRAIN.FREEZE_AT / FREEZE_CONV_BODY: frozen params get no update
     trainable = opt_lib.trainable_from_cfg(cfg, params)
     step_fn = ts_lib.make_train_step(model, cfg, meta, trainable=trainable,
-                                     device=device)
+                                     device=device, mesh=mesh)
     # TPU.DEVICE_AUGMENT False: the host chain; TPU.WIRE_DTYPE bfloat16
     # casts its float32 'data' before the copy (the uint8 wires have
     # nothing to cast)
     loader = ReIDLoader(roidb, cfg, num_workers=num_workers,
                         decode_fn=decode_fn, device=device,
                         raw=bool(cfg.TPU.DEVICE_AUGMENT),
-                        wire_dtype=cfg.TPU.WIRE_DTYPE)
+                        wire_dtype=cfg.TPU.WIRE_DTYPE, mesh=mesh)
     if start_epoch > 0:
         loader.skip_epochs(start_epoch)  # the samplers as a continuous run
     sched = loader.schedule
     stats = TrainingStats(sched.total_steps(), log_period=log_period,
-                          device=device)
-    train_state = {'params': params, 'state': state, 'opt': opt_state}
+                          device=device, emit=chief)
+    train_state = ts_lib.place_train_state(
+        mesh, {'params': params, 'state': state, 'opt': opt_state})
     generator = torch.Generator(device=device)
     base_seed = cfg.RNG_SEED + 1
     global_step = sched.steps_before_epoch(start_epoch) + resume_step
@@ -230,7 +248,7 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
                 cfg, sched.lr_iter(pe, pi), pe, sched.ipe))
     snapshot_period = max(1, cfg.TRAIN.SNAPSHOT_ITERS)
 
-    profile_dir = os.environ.get('PPS_TPU_PROFILE_DIR')
+    profile_dir = chief and os.environ.get('PPS_TPU_PROFILE_DIR')
     profile_window = (5, 15)
     prof = None
 
@@ -246,6 +264,8 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
 
     preempt = preempt_event if preempt_event is not None else _PREEMPT
     preempt.clear()  # a stale flag must not stop the fresh run at step 1
+    # build and kernel-compile skew is absorbed here, not in a collective
+    mesh_lib.coordination_barrier('train_model/start')
     old_sig, sig_installed = None, False
     if threading.current_thread() is threading.main_thread():
         try:
@@ -294,7 +314,11 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
                 global_step += 1
                 if stats.loss_is_nan():
                     raise FloatingPointError('Loss is NaN')
-                if preempt.is_set():
+                stop = preempt.is_set()
+                if mesh.distributed:
+                    # a SIGTERM to any rank stops every rank here
+                    stop = collectives.agree_any(stop, mesh)
+                if stop:
                     # checkpoint synchronously (the grace window is
                     # short; durability before exit beats overlap)
                     if saver_fut is not None:
@@ -304,10 +328,13 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
                     ppath = os.path.join(
                         output_dir, 'model_preempt_epoch{}_step{}.pkl'.format(
                             ep, done_steps))
-                    ckpt_lib.save_checkpoint(
-                        ppath, model, train_state['params'],
-                        train_state['state'], opt_state=train_state['opt'],
-                        cfg=cfg)
+                    if chief:
+                        ckpt_lib.save_checkpoint(
+                            ppath, model, train_state['params'],
+                            train_state['state'],
+                            opt_state=train_state['opt'], cfg=cfg)
+                    # no rank exits before the resume point is on disk
+                    mesh_lib.coordination_barrier('train_model/preempt')
                     logger.info('preemption requested: wrote %s (epoch '
                                 '%d, %d/%d steps); exiting', ppath, ep,
                                 done_steps, sched.epoch_len(ep))
@@ -317,11 +344,13 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
             if ep % snapshot_period == 0 and not sched.is_triplet_epoch(ep):
                 path = os.path.join(output_dir,
                                     'model_epoch{}.pkl'.format(ep + 1))
+                checkpoints[ep] = path
+                if not chief:
+                    continue
                 host, copied = _fetch_async(train_state, device)
                 if saver_fut is not None:
                     saver_fut.result()  # surface errors; one in flight
                 saver_fut = saver.submit(write_snapshot, path, host, copied)
-                checkpoints[ep] = path
     finally:
         # an in-flight snapshot is valid even when the loop aborts, so let
         # it finish.  Its failure is fatal on the normal path; while the
@@ -349,9 +378,11 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
 
     # model_final.pkl is also the training-complete marker of auto-resume
     final_path = os.path.join(output_dir, 'model_final.pkl')
-    ckpt_lib.save_checkpoint(final_path, model, train_state['params'],
-                             train_state['state'],
-                             opt_state=train_state['opt'], cfg=cfg)
+    if chief:
+        ckpt_lib.save_checkpoint(final_path, model, train_state['params'],
+                                 train_state['state'],
+                                 opt_state=train_state['opt'], cfg=cfg)
+    mesh_lib.coordination_barrier('train_model/final')
     checkpoints['final'] = final_path
     return checkpoints
 

@@ -18,26 +18,32 @@ TRIPLET_WEIGHT = 0.14  # reference reid_heads.py:183
 TRIPLET_MARGIN = 1.4   # reference reid_heads.py:184
 
 
-def softmax_ce_losses(logits, labels):
+def softmax_ce_losses(logits, labels, denom=None):
     """Per-combo softmax cross entropy, mean over the batch.
 
     logits: [B, R, K]; labels: [B] int in [0, K).
+    denom: divide the batch sums by this instead of B (under a data mesh
+    the global batch, so each rank returns its share of the global mean).
     Returns (losses [R], accuracies [R]); accuracy takes the argmax, the
     lowest index on ties.
     """
     log_probs = F.log_softmax(logits, dim=-1)
     idx = labels.long()[:, None, None].expand(-1, logits.shape[1], 1)
     picked = torch.gather(log_probs, 2, idx)[..., 0]        # [B, R]
-    losses = -torch.mean(picked, dim=0)
-    hit = torch.argmax(logits, dim=-1) == labels.long()[:, None]
-    return losses, torch.mean(hit.float(), dim=0)
+    hit = (torch.argmax(logits, dim=-1) == labels.long()[:, None]).float()
+    if denom is None:
+        return -torch.mean(picked, dim=0), torch.mean(hit, dim=0)
+    return -torch.sum(picked, dim=0) / denom, torch.sum(hit, dim=0) / denom
 
 
-def crm_loss(probs, labels_oh, labels):
-    """CRM image-level loss on probabilities + accuracy."""
-    loss = cross_entropy_with_logits(probs, labels_oh)
-    hit = torch.argmax(probs, dim=-1) == labels.long()
-    return loss, torch.mean(hit.float())
+def crm_loss(probs, labels_oh, labels, denom=None):
+    """CRM image-level loss on probabilities + accuracy (``denom`` as in
+    ``softmax_ce_losses``)."""
+    loss = cross_entropy_with_logits(probs, labels_oh, n=denom)
+    hit = (torch.argmax(probs, dim=-1) == labels.long()).float()
+    if denom is None:
+        return loss, torch.mean(hit)
+    return loss, torch.sum(hit) / denom
 
 
 def triplet_losses(features, labels, margin=TRIPLET_MARGIN, normalize=True):

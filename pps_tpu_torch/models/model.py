@@ -31,6 +31,7 @@ from pps_tpu_torch.models import fpn as fpn_lib
 from pps_tpu_torch.models import heads as head_lib
 from pps_tpu_torch.models import losses as loss_lib
 from pps_tpu_torch.models import resnet as resnet_lib
+from pps_tpu_torch.parallel import collectives
 
 
 def _depth_from_name(name):
@@ -197,6 +198,11 @@ class ReIDModel:
         loss_scale_factor: scalar (tensor or float) multiplying the triplet
         term under REID.TRIPLET_LOSS_CROSS.  The log keys are the JAX
         package's; each value is a 0-d tensor.
+
+        Under an active data mesh (``parallel/collectives.data_parallel``)
+        ``batch`` is this rank's rows, the returned loss is this rank's
+        share of the global-batch loss (their sum over ranks is the
+        global loss) and every log is the global value.
         """
         features, logits, updates = self._features(
             params, state, batch['data'], train=True,
@@ -208,7 +214,13 @@ class ReIDModel:
             n = self.fpn_spec['fpn_num']
             labels = labels.repeat(n)
             labels_oh = labels_oh.repeat(n, 1)
-        ce, acc = loss_lib.softmax_ce_losses(logits, labels)
+        # under a data mesh each rank's loss is its share of the global
+        # batch's: per-sample sums over the global count, and the triplet
+        # term (computed in full on every rank over the gathered features)
+        # over the world size
+        world = collectives.world_size()
+        denom = None if world == 1 else labels.shape[0] * world
+        ce, acc = loss_lib.softmax_ce_losses(logits, labels, denom)
         total = torch.sum(ce)
         logs = {'accuracy_cls': torch.mean(acc)}
         # per-combo logs in reference blob naming ({prefix}_loss/_accuracy)
@@ -219,23 +231,33 @@ class ReIDModel:
 
         if self.use_crm:
             probs = head_lib.apply_crm(params, features)
-            crm, crm_acc = loss_lib.crm_loss(probs, labels_oh, labels)
+            crm, crm_acc = loss_lib.crm_loss(probs, labels_oh, labels, denom)
             total = total + crm
             logs['crm_loss'] = crm
             logs['crm_accuracy'] = crm_acc
 
+        global_logs = {}
         if self.use_triplet:
             mrc, ap_mean, an_mean = loss_lib.triplet_losses(
-                features, labels, normalize=self.normalize_feature)
+                collectives.all_gather(features),
+                collectives.all_gather(labels),
+                normalize=self.normalize_feature)
             tri = (mrc * loss_scale_factor if self.cfg.REID.TRIPLET_LOSS_CROSS
                    else mrc)
-            total = total + loss_lib.TRIPLET_WEIGHT * torch.sum(tri)
+            total = total + loss_lib.TRIPLET_WEIGHT * torch.sum(tri) / world
             for r, (prefix, _) in enumerate(combos):
-                logs[prefix + '_triplet_loss'] = tri[r]
-                logs[prefix + '_dist_ap_mean'] = ap_mean[r]
-                logs[prefix + '_dist_an_mean'] = an_mean[r]
+                global_logs[prefix + '_triplet_loss'] = tri[r]
+                global_logs[prefix + '_dist_ap_mean'] = ap_mean[r]
+                global_logs[prefix + '_dist_an_mean'] = an_mean[r]
 
         logs['loss'] = total
+        if world > 1:
+            # the shares summed: one collective for every log
+            keys = list(logs)
+            vals = collectives.all_reduce(torch.stack(
+                [logs[k].detach().reshape(()) for k in keys]))
+            logs = dict(zip(keys, vals.unbind(0)))
+        logs.update(global_logs)
         return total, (updates, logs)
 
 

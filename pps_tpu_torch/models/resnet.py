@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from pps_tpu_torch.kernels.conv2d_int8 import conv2d_int8
+from pps_tpu_torch.parallel import collectives
 
 BN_EPSILON = 1e-5  # Caffe2 SpatialBN default epsilon
 BN_MOMENTUM = 0.9  # Caffe2 SpatialBN default momentum
@@ -199,10 +200,25 @@ def batch_norm(x, s, b, rm, riv):
 
 def batch_stats(xf, dims):
     """Float32 batch mean and biased variance ``max(E[x^2] - mean^2, 0)``
-    over ``dims`` (the JAX package's formula, autograd through both)."""
-    mean = torch.mean(xf, dim=dims)
-    var = torch.clamp(torch.mean(xf * xf, dim=dims) - mean * mean, min=0.0)
-    return mean, var
+    over ``dims`` (the JAX package's formula, autograd through both).
+
+    Under an active data mesh (``parallel/collectives.data_parallel``) the
+    statistics are those of the GLOBAL batch, as in pps_tpu's step: one
+    differentiable all-reduce of ``[sum x, sum x^2, count]``."""
+    if collectives.active() is None:
+        mean = torch.mean(xf, dim=dims)
+        var = torch.clamp(torch.mean(xf * xf, dim=dims) - mean * mean,
+                          min=0.0)
+        return mean, var
+    s1 = torch.sum(xf, dim=dims)
+    s2 = torch.sum(xf * xf, dim=dims)
+    m = s1.numel()
+    count = xf.new_full((1,), float(xf.numel() // m))
+    tot = collectives.all_reduce(torch.cat([s1.reshape(-1), s2.reshape(-1),
+                                            count]))
+    mean = (tot[:m] / tot[-1]).reshape(s1.shape)
+    ex2 = (tot[m:2 * m] / tot[-1]).reshape(s1.shape)
+    return mean, torch.clamp(ex2 - mean * mean, min=0.0)
 
 
 def running_update(old, new):

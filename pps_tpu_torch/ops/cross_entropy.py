@@ -23,9 +23,9 @@ DIFF_THRESHOLD = 1e4
 class _CrossEntropyWithLogits(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, probs, labels):
+    def forward(ctx, probs, labels, n):
         ctx.save_for_backward(probs, labels)
-        n = probs.shape[0]
+        ctx.n = n
         p = torch.clamp(probs, min=LOG_THRESHOLD)
         one_p = torch.clamp(1.0 - probs, min=LOG_THRESHOLD)
         loss = -torch.sum(labels * torch.log(p) +
@@ -35,13 +35,16 @@ class _CrossEntropyWithLogits(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         probs, labels = ctx.saved_tensors
-        n = probs.shape[0]
+        n = ctx.n
         p = torch.clamp(probs, min=LOG_THRESHOLD)
         one_p = torch.clamp(1.0 - probs, min=LOG_THRESHOLD)
         grad = dy * (-labels / p + (1.0 - labels) / one_p)
-        return torch.clamp(grad, max=DIFF_THRESHOLD) / n, None
+        return torch.clamp(grad, max=DIFF_THRESHOLD) / n, None, None
 
 
-def cross_entropy_with_logits(probs, labels):
-    """probs, labels: [N, C] float; returns the scalar mean-over-N loss."""
-    return _CrossEntropyWithLogits.apply(probs, labels)
+def cross_entropy_with_logits(probs, labels, n=None):
+    """probs, labels: [N, C] float; returns the scalar loss summed over
+    the rows and divided by ``n`` (default N: the mean; under a data mesh
+    the global batch, so each rank's loss is its share)."""
+    return _CrossEntropyWithLogits.apply(
+        probs, labels, probs.shape[0] if n is None else n)

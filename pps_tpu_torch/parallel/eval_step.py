@@ -1,10 +1,12 @@
-"""Batched feature extraction on one device.
+"""Batched feature extraction (counterpart of
+``pps_tpu/parallel/eval_step.py``): images are batched, the tail batch is
+padded by repeating its last row and the pad rows are dropped, and the
+next batch's host-to-device copy overlaps the current batch's compute.
 
-Counterpart of ``pps_tpu/parallel/eval_step.py`` without the mesh: images
-are batched, the tail batch is padded by repeating its last row and the
-pad rows are dropped, and the next batch's host-to-device copy overlaps
-the current batch's compute.  Multi-GPU extraction waits for ROADMAP
-slice 8.
+Over a data mesh (one process per rank) every rank drives the same loop
+over the same global batches: ``put_global_batch`` takes the rank's rows
+(and raises when a batch does not split), ``fetch_global`` puts the
+ranks' features back together on every rank, in row order.
 """
 
 import numpy as np
@@ -13,6 +15,8 @@ import torch
 from pps_tpu_torch.data.device_preprocess import (
     preprocess_on_device, preprocess_on_device_padded)
 from pps_tpu_torch.device import Transfer, resolve_device
+from pps_tpu_torch.parallel import collectives
+from pps_tpu_torch.parallel import mesh as mesh_lib
 
 
 def make_extract_fn(model, flip_tta=False, device_preproc=None, device=None,
@@ -59,14 +63,44 @@ def make_extract_fn(model, flip_tta=False, device_preproc=None, device=None,
     return extract
 
 
-def extract_features(extract_fn, params, state, images, batch_size):
+def put_global_batch(mesh, arr):
+    """This rank's rows of a global [B, ...] host array (all of it without
+    a distributed mesh).  Raises when B does not split over the ranks:
+    a truncated shard would mis-align features to images, so callers pad
+    the tail batch to a divisible size."""
+    if mesh is None or not mesh.distributed:
+        return arr
+    if arr.shape[0] % mesh.world_size:
+        raise ValueError(
+            'global batch {} not divisible by {} ranks: the truncated '
+            'shard would mis-align features to images (callers pad the '
+            'tail batch to a divisible size)'.format(arr.shape[0],
+                                                     mesh.world_size))
+    return arr[slice(*mesh_lib.local_rows(mesh, arr.shape[0]))]
+
+
+def fetch_global(mesh, x):
+    """This rank's [b, ...] rows (a tensor or host array) -> the global
+    [b * world, ...] numpy array on every rank, in rank order (a
+    collective over the mesh's host group: call it in the same order on
+    every rank)."""
+    x = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    if mesh is None or not mesh.distributed:
+        return x
+    return collectives.gather_host_rows(x, mesh)
+
+
+def extract_features(extract_fn, params, state, images, batch_size,
+                     mesh=None):
     """Drive ``extract_fn`` over a numpy image stack [N, H, W, 3].
 
-    The tail batch is padded to ``batch_size`` by repeating its last row,
-    then the pad rows are dropped.  On the card each batch goes through
-    pinned host memory on a side stream, issued before the current batch's
-    result is fetched, so the copy overlaps compute.  Returns [N, E]
-    float32 numpy.
+    ``batch_size`` is the global batch: the tail batch is padded to it by
+    repeating its last row, then the pad rows are dropped.  On the card
+    each batch goes through pinned host memory on a side stream, issued
+    before the current batch's result is fetched, so the copy overlaps
+    compute.  Under a distributed ``mesh`` every rank passes the same
+    stack, extracts its rows of each batch and gets every row back.
+    Returns [N, E] float32 numpy.
     """
     transfer = Transfer(extract_fn.device)
     n = images.shape[0]
@@ -77,7 +111,7 @@ def extract_features(extract_fn, params, state, images, batch_size):
         if pad:
             chunk = np.concatenate(
                 [chunk, np.repeat(chunk[-1:], pad, axis=0)], axis=0)
-        return transfer.put(chunk), pad
+        return transfer.put(put_global_batch(mesh, chunk)), pad
 
     starts = list(range(0, n, batch_size))
     out = []
@@ -91,9 +125,9 @@ def extract_features(extract_fn, params, state, images, batch_size):
             next_dev = put(starts[i + 1])       # overlap H2D with compute
         if pending is not None:
             pf, ppad = pending
-            out.append(pf.cpu().numpy()[:batch_size - ppad])
+            out.append(fetch_global(mesh, pf)[:batch_size - ppad])
         pending = (feats, pad)
     if pending is not None:
         pf, ppad = pending
-        out.append(pf.cpu().numpy()[:batch_size - ppad])
+        out.append(fetch_global(mesh, pf)[:batch_size - ppad])
     return np.concatenate(out, axis=0) if out else np.zeros((0,))

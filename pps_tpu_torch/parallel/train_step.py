@@ -1,13 +1,23 @@
-"""The training step on one device (counterpart of
-``pps_tpu/parallel/train_step.py`` without the mesh).
+"""The training step (counterpart of ``pps_tpu/parallel/train_step.py``).
 
 One step = augmentation on the uint8 wire (raw or padded) -> forward ->
 losses -> backward -> momentum-SGD, as one call that reads nothing back
 to the host, so consecutive steps queue on the card without a sync.  A
 batch of the host chain ('data', float32 or bfloat16) goes straight to
-the model.  Scalars
-that change between steps (``lr``, ``loss_scale_factor``) are arguments.
-Multi-GPU (synchronised BN stats, gradient all-reduce) is ROADMAP slice 8.
+the model.  Scalars that change between steps (``lr``,
+``loss_scale_factor``) are arguments.
+
+Over a data mesh (one process per rank, ``parallel/mesh.py``) each rank
+steps on its rows of the global batch, and the step is pps_tpu's
+global-batch step:
+
+* the augmentation draws and the dropout mask are drawn for the GLOBAL
+  batch from the same generator on every rank, then sliced to the rank's
+  rows, so the ranks' augmented rows put together are the one-rank batch;
+* train-mode BN (body and head) takes global statistics, and each rank's
+  loss is its share of the global loss (``parallel/collectives.py``);
+* after backward, one flat all-reduce (a sum) of the gradient, then the
+  unchanged momentum-SGD, so every rank holds the same state.
 """
 
 import numpy as np
@@ -15,10 +25,23 @@ import torch
 
 from pps_tpu_torch.data import device_augment as aug_lib
 from pps_tpu_torch.device import resolve_device
+from pps_tpu_torch.parallel import collectives
+from pps_tpu_torch.parallel import mesh as mesh_lib
 from pps_tpu_torch.solver import optimizer as opt_lib
 
 
-def make_train_step(model, cfg, meta, trainable=None, device=None):
+def _rank_rows(x, mesh, levels=1):
+    """This rank's rows of a global [levels * B, ...] tensor laid out
+    level-major (FPN's batch concat), as a [levels * B_local, ...] one."""
+    if mesh is None:
+        return x
+    g = x.reshape((levels, -1) + tuple(x.shape[1:]))
+    lo, hi = mesh_lib.local_rows(mesh, g.shape[1])
+    return g[:, lo:hi].reshape((-1,) + tuple(x.shape[1:]))
+
+
+def make_train_step(model, cfg, meta, trainable=None, device=None,
+                    mesh=None):
     """Build the train step.
 
     Returns step(train_state, batch, lr, loss_scale_factor, generator,
@@ -28,27 +51,73 @@ def make_train_step(model, cfg, meta, trainable=None, device=None):
       batch = {'data_u8' [B, H, W, 3] uint8, 'flipped' [B] bool, and on
         the padded wire 'valid_hw' [B, 2]} or {'data' [B, H', W', 3]
         float32 or bfloat16}, plus 'labels_int32' [B] and 'labels_oh'
-        [B, K], all on the device;
+        [B, K], all on the device (under a mesh: this rank's rows);
       generator: a ``torch.Generator`` on the device; it draws the
-        augmentation params and the dropout mask;
+        augmentation params and the dropout mask (under a mesh, seeded
+        alike on every rank);
       draws: optional {'augment': params of
         ``device_augment.sample_params``, 'dropout_mask': [B, R, D] bool}
-        used instead of drawing (the tests inject the JAX package's draws);
-      logs: the model's logs plus 'lr', each a 0-d tensor on the device.
+        used instead of drawing (the tests inject the JAX package's
+        draws); under a mesh they are the global batch's;
+      logs: the model's logs plus 'lr', each a 0-d tensor on the device
+        (under a mesh, global values).
+    mesh: a distributed ``parallel/mesh.Mesh`` (its model axis 1): the
+      data-parallel step.  None, or a mesh without a process group, is
+      the one-device step.
     """
     device = resolve_device(device)
     if device != model.device:
         raise ValueError('train step on {} for a model on {}'.format(
             device, model.device))
+    if mesh is not None:
+        mesh_lib.check_data_only(mesh)
+        if mesh.distributed and mesh.device != device:
+            raise ValueError('train step on {} for a mesh on {}'.format(
+                device, mesh.device))
+        if not mesh.distributed:
+            mesh = None
     flavor = opt_lib.flavor_from_cfg(cfg)
     iter_size = int(cfg.REID.ITER_SIZE)
     momentum = float(cfg.SOLVER.MOMENTUM)
     aug_spec = aug_lib.augment_spec(cfg)
     pixel_means = np.asarray(cfg.PIXEL_MEANS)
+    dropout = float(model.head_spec.get('dropout', 0.0))
+    levels = 1 if model.fpn_spec is None else model.fpn_spec['fpn_num']
+
+    def global_draws(batch, draws, generator):
+        """The global batch's draws, sliced to this rank's rows."""
+        n = batch['labels_int32'].shape[0] * mesh.world_size
+        out = {}
+        if 'data_u8' in batch:
+            aug = draws.get('augment')
+            if aug is None:
+                x = batch['data_u8']
+                if 'valid_hw' in batch:
+                    vhw = collectives.all_gather(batch['valid_hw'], mesh)
+                    raw_hw = (vhw[:, 0], vhw[:, 1])
+                else:
+                    raw_hw = (int(x.shape[1]), int(x.shape[2]))
+                aug = aug_lib.sample_params(generator, aug_spec, n, raw_hw,
+                                            x.device)
+            out['augment'] = {k: _rank_rows(v, mesh) for k, v in aug.items()}
+        mask = draws.get('dropout_mask')
+        if mask is None and dropout > 0.0:
+            if generator is None:
+                raise ValueError(
+                    'dropout needs a generator or a mask in train mode')
+            shape = (levels * n, model.num_combos,
+                     model.head_spec['bpm_dim'])
+            mask = torch.rand(shape, generator=generator,
+                              device=device) < 1.0 - dropout
+        if mask is not None:
+            out['dropout_mask'] = _rank_rows(mask, mesh, levels)
+        return out
 
     def step(train_state, batch, lr, loss_scale_factor, generator,
              draws=None):
         draws = draws or {}
+        if mesh is not None:
+            draws = global_draws(batch, draws, generator)
         params, state = train_state['params'], train_state['state']
         if 'data_u8' in batch:
             data = aug_lib.augment_batch(
@@ -64,7 +133,7 @@ def make_train_step(model, cfg, meta, trainable=None, device=None):
             leaves[k] = params[k].detach().requires_grad_(True)
         lsf = opt_lib.as_scalar(loss_scale_factor, data)
         # a step differentiates whatever the caller's grad mode is
-        with torch.enable_grad():
+        with torch.enable_grad(), collectives.data_parallel(mesh):
             total, (updates, logs) = model.train_forward(
                 leaves, state, {'data': data,
                                 'labels_int32': batch['labels_int32'],
@@ -76,6 +145,9 @@ def make_train_step(model, cfg, meta, trainable=None, device=None):
                                         allow_unused=True)
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(names, grads)}
+        if mesh is not None:
+            # the objective is the sum of the ranks' losses
+            collectives.all_reduce_flat_(list(grads.values()), mesh)
         new_params, new_opt = opt_lib.sgd_update(
             params, grads, train_state['opt'], lr, meta, momentum=momentum,
             flavor=flavor, iter_size=iter_size, num_devices=1,
@@ -88,4 +160,29 @@ def make_train_step(model, cfg, meta, trainable=None, device=None):
                 logs)
 
     step.device = device
+    step.mesh = mesh
     return step
+
+
+def place_train_state(mesh, train_state):
+    """Every rank takes rank 0's train state, bitwise (one broadcast per
+    dtype), so the ranks start equal.  In place; returns the state."""
+    if mesh is None or not mesh.distributed:
+        return train_state
+    mesh_lib.param_shardings(mesh, train_state['params'])  # model axis 1
+    tensors = list(train_state['params'].values()) + \
+        list(train_state['state'].values())
+    for v in train_state['opt'].values():
+        tensors += list(v.values()) if isinstance(v, dict) else [v]
+    collectives.broadcast_flat_([t for t in tensors if torch.is_tensor(t)],
+                                mesh)
+    return train_state
+
+
+def shard_batch(mesh, batch):
+    """This rank's rows of a global batch (a dict of [B, ...] arrays or
+    tensors); the identity without a distributed mesh."""
+    if mesh is None or not mesh.distributed:
+        return batch
+    return {k: v[slice(*mesh_lib.local_rows(mesh, v.shape[0]))]
+            for k, v in batch.items()}

@@ -53,7 +53,8 @@ def main(argv=None):
                         help='hold the gallery int8-quantized on the '
                              'device (4x fewer bytes than float32)')
     parser.add_argument('--shard-gallery', action='store_true',
-                        help='not ported (ROADMAP slice 8); raises')
+                        help='row-shard the gallery over every card this '
+                             'process sees (one shard each), merged exactly')
     parser.add_argument('--rerank', action='store_true',
                         help='k-reciprocal re-rank the per-query shortlist '
                              '(the evaluation protocol\'s re-ranking, '

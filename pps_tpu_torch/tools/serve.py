@@ -303,7 +303,7 @@ def make_handler(state, recall_target, rerank_cfg=None,
                     'gallery_size': len(state.index),
                     'dim': state.index.dim,
                     'int8': state.index.int8,
-                    'sharded': False,
+                    'sharded': state.index.shard,
                     'ivf': state.index.ivf_enabled})
             elif path == '/stats':
                 self._json(200, state.stats())
@@ -466,7 +466,8 @@ def main(argv=None):
                         help='hold the gallery int8 on the device (4x '
                              'fewer bytes than float32)')
     parser.add_argument('--shard-gallery', action='store_true',
-                        help='not ported (ROADMAP slice 8); raises')
+                        help='row-shard the gallery over every card this '
+                             'process sees (one shard each), merged exactly')
     parser.add_argument('--approx-recall', type=float, default=None,
                         help='accepted for compatibility: the selection '
                              'on this device is exact whatever the value')

@@ -4,7 +4,9 @@
     python -m pps_tpu_torch.tools.test_net --cfg <yaml> [--wait]
         [--device cuda|cpu] TEST.WEIGHTS <pkl> [KEY VALUE ...]
 
-Artifacts (features.pkl) land in <OUTPUT_DIR>/test/<dataset>/.
+Artifacts (features.pkl) land in <OUTPUT_DIR>/test/<dataset>/.  Under
+``torchrun`` (one process per card) the ranks split every batch and rank
+0 evaluates and writes.
 """
 
 import argparse
@@ -40,6 +42,7 @@ def main(argv=None):
     from pps_tpu_torch.engine.test import run_inference
     from pps_tpu_torch.evaluation.expected_results import (
         check_expected_results)
+    from pps_tpu_torch.parallel.mesh import init_from_env
     from pps_tpu_torch.utils.logging import setup_logging
 
     logger = setup_logging(__name__)
@@ -60,13 +63,17 @@ def main(argv=None):
     while args.wait and not os.path.exists(weights):
         logger.info('Waiting for \'%s\' to exist...', weights)
         time.sleep(10)
-    results = run_inference(cfg, weights_file=weights, device=args.device)
-    check_expected_results(cfg, results)
+    results = run_inference(cfg, weights_file=weights,
+                            device=init_from_env(args.device))
+    if results:  # rank 0 evaluates
+        check_expected_results(cfg, results)
 
 
 if __name__ == '__main__':
     from pps_tpu_torch.kernels import write_launch_counts
+    from pps_tpu_torch.parallel.mesh import destroy_distributed
     try:
         main()
     finally:
         write_launch_counts()
+        destroy_distributed()

@@ -7,6 +7,14 @@
 Checkpoints land in <OUTPUT_DIR>/train/<dataset>/, test artifacts in
 <OUTPUT_DIR>/test/<dataset>/.  After a preemption (SIGTERM) the command
 exits 75 with a resume checkpoint written: run it again to continue.
+
+Data-parallel over N cards, one process per card:
+
+    torchrun --nproc_per_node N -m pps_tpu_torch.tools.train_net --cfg <yaml>
+        NUM_GPUS N [KEY VALUE ...]
+
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT`` set the process group up; rank 0 writes and logs.)
 """
 
 import argparse
@@ -44,6 +52,7 @@ def main(argv=None):
     from pps_tpu_torch.engine.train import Preempted, train_model
     from pps_tpu_torch.evaluation.expected_results import (
         check_expected_results)
+    from pps_tpu_torch.parallel.mesh import init_from_env
     from pps_tpu_torch.utils.logging import setup_logging
 
     logger = setup_logging(__name__)
@@ -56,9 +65,10 @@ def main(argv=None):
     assert_and_infer_cfg()  # frozen from here on
     logger.info('Training with config:\n%s', pprint.pformat(cfg))
     np.random.seed(cfg.RNG_SEED)
+    device = init_from_env(args.device)
 
     try:
-        checkpoints = train_model(cfg, device=args.device)
+        checkpoints = train_model(cfg, device=device)
     except Preempted as p:
         # the resume checkpoint is written; 75 = EX_TEMPFAIL tells a
         # scheduler to run the same command again
@@ -67,8 +77,9 @@ def main(argv=None):
 
     if not args.skip_test:
         results = run_inference(cfg, weights_file=checkpoints['final'],
-                                device=args.device)
-        check_expected_results(cfg, results)
+                                device=device)
+        if results:  # rank 0 evaluates
+            check_expected_results(cfg, results)
         print('reprint snapshot name for the result: ', checkpoints['final'])
         cfg.immutable(False)
         cfg.TEST.BBOX_AUG.ENABLED = False
@@ -77,14 +88,16 @@ def main(argv=None):
         for snapshot in sorted((k for k in checkpoints if k != 'final'),
                                reverse=True):
             run_inference(cfg, weights_file=checkpoints[snapshot],
-                          device=args.device)
+                          device=device)
             print('reprint snapshot name for the result: ', snapshot,
                   checkpoints[snapshot])
 
 
 if __name__ == '__main__':
     from pps_tpu_torch.kernels import write_launch_counts
+    from pps_tpu_torch.parallel.mesh import destroy_distributed
     try:
         main()
     finally:
         write_launch_counts()
+        destroy_distributed()

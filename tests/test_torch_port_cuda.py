@@ -578,3 +578,59 @@ def test_int8_extraction_card_matches_cpu(small_models):
     assert ck.launches - before == 53
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the data mesh on the card: two ranks share it over gloo; NCCL refuses
+# ---------------------------------------------------------------------------
+
+
+def test_collectives_on_two_ranks_sharing_the_card(cuda, tmp_path):
+    """The collectives and the global BN statistics on CUDA tensors, two
+    ranks on cuda:0 over gloo, against one process on the CPU."""
+    from _torch_port_dist import (check_collectives, collectives_payload,
+                                  run_ranks)
+    payload = collectives_payload(2, device='cuda:0')
+    check_collectives(run_ranks('collectives', 2, str(tmp_path), payload,
+                                timeout=180), payload)
+
+
+def test_nccl_with_two_ranks_on_one_card_raises(cuda, tmp_path):
+    """NCCL asked for with two ranks on cuda:0 raises on both (before any
+    collective, so nothing hangs)."""
+    from _torch_port_dist import collectives_payload, run_ranks
+    payload = dict(collectives_payload(2, device='cuda:0'), backend='nccl')
+    with pytest.raises(RuntimeError, match='NCCL needs one CUDA device'):
+        run_ranks('collectives', 2, str(tmp_path), payload, timeout=120)
+
+
+def test_sharded_topk_on_the_card_equals_the_flat_route(cuda):
+    """Four shards on cuda:0 (each its own tensor) against the unsharded
+    flat route on the card, int8 and float32; IVF with every cell probed
+    against the exact scan."""
+    from pps_tpu_torch.parallel import mesh as mesh_lib
+    from pps_tpu_torch.parallel import retrieval as ret
+    gen = torch.Generator().manual_seed(3)
+    g = torch.randn(10007, 256, generator=gen)
+    g = g / torch.linalg.norm(g, dim=1, keepdim=True)
+    q = g[:33] + 0.05 * torch.randn(33, 256, generator=gen)
+    mesh = mesh_lib.build_mesh(devices=['cuda:0'] * 4)
+    for int8 in (False, True):
+        shards, scales, n = ret.shard_gallery(g.to(cuda), mesh, int8=int8)
+        assert len(shards) == 4 and n == len(g)
+        d, i = ret.sharded_topk(q, shards, ng_total=n, k=50, chunk=1024,
+                                g_scale=scales)
+        g_in, s_in = quantize_gallery(g.to(cuda)) if int8 else (g.to(cuda),
+                                                                 None)
+        wd, wi = flat_topk(q.to(cuda), g_in, k=50, g_scale=s_in)
+        np.testing.assert_array_equal(i.cpu().numpy(), wi.cpu().numpy())
+        np.testing.assert_allclose(d.cpu().numpy(), wd.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    cent = ivf.kmeans(g.numpy(), 64, iters=4, seed=0, device=cuda)
+    assign = ivf.assign_clusters(g.to(cuda), cent)
+    placed = ret.shard_ivf_gallery(g.numpy(), assign, 64, mesh)
+    d, i = ret.sharded_ivf_topk(q, cent, placed, k=20, nprobe=64,
+                                budget=len(g))
+    wd, wi = flat_topk(q.to(cuda), g.to(cuda), k=20)
+    np.testing.assert_array_equal(np.sort(i.cpu().numpy(), 1),
+                                  np.sort(wi.cpu().numpy(), 1))

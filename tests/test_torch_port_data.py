@@ -28,6 +28,8 @@ from pps_tpu_torch.data import sampler as tsampler
 from pps_tpu_torch.data import transforms as ttransforms
 from pps_tpu_torch.device import Transfer
 
+from _torch_port_dist import decoder  # noqa: F401 (other modules import it)
+
 
 def write_coco(root, split, n_ids, per_id, hw=(96, 32), with_marks=False,
                n_cams=2):
@@ -54,23 +56,6 @@ def write_coco(root, split, n_ids, per_id, hw=(96, 32), with_marks=False,
         json.dump({'images': images, 'annotations': annotations,
                    'categories': categories}, f)
     return imdir, ann_fn
-
-
-def decoder(hw=(96, 32)):
-    """decode_fn(path) -> uint8 [h, w, 3] from the file name alone: 8x4
-    colour blocks seeded by the identity, plus noise seeded by the image."""
-    h, w = hw
-
-    def decode(path):
-        base = os.path.basename(path)
-        pid = int(base[:8])
-        iid = int(base.split('_')[-1].split('.')[0])
-        blocks = np.random.RandomState(pid).randint(
-            0, 255, size=(8, 4, 3)).astype(np.float32)
-        im = np.kron(blocks, np.ones((h // 8, w // 4, 1), np.float32))
-        im += np.random.RandomState(iid).randn(h, w, 3) * 8.0
-        return np.clip(im, 0, 255).astype(np.uint8)
-    return decode
 
 
 def both_cfgs(opts):

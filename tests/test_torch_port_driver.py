@@ -329,9 +329,11 @@ def test_nan_loss_aborts(runs, tmp_path):
 
 def test_unported_options_raise(runs, tmp_path, monkeypatch):
     tc = tcfg.cfg
-    # (TPU.DEVICE_AUGMENT False, the host chain, is ported: slice 3b)
-    for opts, match in ((['TPU.CKPT_FORMAT', 'orbax'], 'slice 8'),
-                        (['NUM_GPUS', '2'], 'slice 8')):
+    # (TPU.DEVICE_AUGMENT False, the host chain, is ported: slice 3b;
+    # NUM_GPUS > 1 and a process group: slice 8,
+    # tests/test_torch_port_dp_driver.py)
+    for opts, match in ((['TPU.CKPT_FORMAT', 'orbax'], 'slice 9'),
+                        (['TPU.MESH_SHAPE', '(-1, 2)'], 'slice 9')):
         tcfg.reset_cfg()
         both_cfgs(runs['opts'] + opts)
         with pytest.raises(NotImplementedError, match=match):

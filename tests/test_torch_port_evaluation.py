@@ -316,7 +316,7 @@ def test_engine_refuses_unported_paths(tmp_path):
     # (REID.RERANK and REID.VIS are ported: slice 5; TPU.INT8_EVAL: the
     # variants slice, tests/test_torch_port_quantize.py)
     _, tc = both_cfgs(TINY)
-    with pytest.raises(NotImplementedError, match='slice 8'):
+    with pytest.raises(NotImplementedError, match='slice 9'):
         ttest_engine.test_net(tc, str(tmp_path / 'w.orbax'),
                               'port_eval_test', device='cpu')
     # mixed sizes and host preprocessing are ported (slice 3b): the

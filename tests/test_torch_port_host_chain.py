@@ -6,7 +6,9 @@ bytes (numpy + cv2 on both sides).  Then ``TPU.WIRE_DTYPE bfloat16``: the
 loader casts the float32 wire on the host, as pps_tpu's ``device_put_fn``
 does, and ``train_model`` feeds those batches straight to the model."""
 
+import os
 import shutil
+import zlib
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from pps_tpu_torch.data import loader as tloader
 from pps_tpu_torch.data import minibatch as tminibatch
 from pps_tpu_torch.data import transforms as ttr
 from pps_tpu_torch.engine import train as ttrain
+from pps_tpu_torch.parallel import mesh as tmesh
 from pps_tpu_torch.parallel import train_step as tts
 
 from test_torch_port_data import LOADER_OPTS, both_cfgs, decoder, toy  # noqa
@@ -169,6 +172,70 @@ def test_loader_host_chain_matches(toy):  # noqa: F811
                                               'labels_oh']
             for k in w:
                 np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+def _rank_mesh(rank, world):
+    """Rank ``rank`` of a ``world``-rank data mesh, for the loader alone:
+    it reads only its rows, so no process group is needed."""
+    m = tmesh.Mesh(np.arange(world).astype(object).reshape(world, 1),
+                   ('data', 'model'), torch.device('cpu'))
+    m.group, m.rank, m.world_size = 'a stand-in group', rank, world
+    return m
+
+
+@pytest.mark.parametrize('metadata', [True, False], ids=['hw', 'no_hw'])
+def test_loader_host_chain_over_ranks(toy, metadata):  # noqa: F811
+    """Over a 2-rank data mesh the host chain takes the global batch's
+    draws in plan order: the ranks' rows put together are pps_tpu's global
+    batch bitwise, for decodes of mixed sizes (a row's draws depend on
+    its shape).  With height/width metadata a rank decodes only its own
+    rows."""
+    jr, tr = toy
+    world = 2
+    jc, tc = both_cfgs(LOADER_OPTS + AUG_OPTS + [
+        'TRAIN.IMS_PER_BATCH', '4', 'REID.P', '2', 'NUM_GPUS', str(world)])
+    dec = decoder((48, 20))
+
+    def height(path):
+        return 36 + zlib.crc32(os.path.basename(path).encode()) % 13
+
+    def mixed(path):
+        return dec(path)[:height(path)]
+    roidbs = []
+    for r in (jr, tr):
+        r = [dict(e) for e in r]
+        for e in r:
+            e.pop('height', None)
+            e.pop('width', None)
+            if metadata:
+                e['height'], e['width'] = height(e['image']), 20
+        roidbs.append(r)
+    j = jloader.ReIDLoader(roidbs[0], jc, num_workers=2, decode_fn=mixed,
+                           raw=False)
+    want = [b for _, _, b in j.iter_epoch(0)]
+    got, decoded = [], []
+    for rank in range(world):
+        seen = []
+
+        def counted(path):
+            seen.append(path)
+            return mixed(path)
+        t = tloader.ReIDLoader(roidbs[1], tc, num_workers=2,
+                               decode_fn=counted, raw=False,
+                               mesh=_rank_mesh(rank, world))
+        got.append([b for _, _, b in t.iter_epoch(0)])
+        decoded.append(len(seen))
+    n = len(want)
+    assert n >= 3 and len(got[0]) == len(got[1]) == n
+    for s, w in enumerate(want):
+        assert w['data'].shape[0] == 8
+        for k in w:
+            np.testing.assert_array_equal(
+                np.concatenate([got[r][s][k] for r in range(world)]), w[k],
+                err_msg='{} of batch {}'.format(k, s))
+    # with the sizes in the metadata each rank decodes its 4 rows of a
+    # batch; without them rank 1 decodes rank 0's rows too, for shapes
+    assert decoded == ([4 * n, 4 * n] if metadata else [4 * n, 8 * n])
 
 
 def test_loader_bf16_wire_matches(toy):  # noqa: F811

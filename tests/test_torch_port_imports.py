@@ -87,6 +87,31 @@ def test_source_has_no_forbidden_import(path):
     assert not _FORBIDDEN.findall(text), path
 
 
+# torch.distributed is imported inside the functions that use it: an
+# install without it (torch.distributed.is_available() False) still
+# imports every module
+_MODULE_LEVEL_DIST = re.compile(
+    r'^(import\s+torch\.distributed\b|from\s+torch\.distributed\b|'
+    r'from\s+torch\s+import\s+distributed\b)', re.MULTILINE)
+
+
+@pytest.mark.parametrize('path', sorted(
+    str(p.relative_to(REPO)) for p in
+    [*PKG.rglob('*.py'), REPO / 'chip_smoke.py']))
+def test_no_module_level_torch_distributed_import(path):
+    text = (REPO / path).read_text()
+    assert not _MODULE_LEVEL_DIST.findall(text), path
+
+
+def test_data_parallel_modules_are_scanned():
+    mods = _port_modules()
+    for m in ('parallel.mesh', 'parallel.collectives', 'parallel.retrieval'):
+        assert 'pps_tpu_torch.' + m in mods
+    assert _MODULE_LEVEL_DIST.search('import torch.distributed as dist')
+    assert _MODULE_LEVEL_DIST.search('from torch.distributed import nn')
+    assert not _MODULE_LEVEL_DIST.search('    import torch.distributed')
+
+
 def test_forbidden_pattern_matches_only_the_jax_package():
     assert _FORBIDDEN.search('from pps_tpu.models import resnet')
     assert _FORBIDDEN.search('import pps_tpu')

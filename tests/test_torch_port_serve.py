@@ -1,5 +1,6 @@
 """The port's serving daemon (``python -m pps_tpu_torch.tools.serve``) as a
-``--device cpu`` subprocess on a tiny yaml, and ``tools.retrieve`` once.
+``--device cpu`` subprocess on a tiny yaml, and ``tools.retrieve`` (plain
+and with ``--shard-gallery``).
 
 Held: every endpoint answers with pps_tpu's JSON keys (the sets below are
 those of ``tools/serve.py``); /search equals an in-process port
@@ -256,25 +257,30 @@ def test_daemon_endpoints_restart_and_retrieve(site):
     finally:
         assert d.stop() == 0
 
-    r = subprocess.run(
-        [sys.executable, '-m', 'pps_tpu_torch.tools.retrieve', '--device',
-         'cpu', '--cfg', str(root / 'cfg.yaml'), '--weights',
-         str(root / 'w.pkl'), '--load-index', str(root / 'idx.npz'),
-         '--topk', '4', '--query', *site['queries']],
-        cwd=str(root), env=dict(_env(), **{
-            kernels.LAUNCH_COUNTS_ENV: str(root / 'retrieve.launches.json')}),
-        capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stderr[-3000:]
-    # the entry point reports its own kernel launches at exit: none on the
-    # CPU, where every wrapper runs its plain version
-    counts = json.loads((root / 'retrieve.launches.json').read_text())
-    assert counts == {'conv2d_int8': 0, 'zero_even': 0}
-    blocks = r.stdout.split('query: ')[1:]
-    assert len(blocks) == 3
-    for block, (p0, d0) in zip(blocks, before):
-        rows = [ln.split() for ln in block.splitlines()[1:]]
-        dists = np.array([float(row[1][2:]) for row in rows])
-        _assert_same_ranking([row[2] for row in rows], dists, p0, d0)
+    # retrieve, and retrieve with the gallery row-sharded (one shard per
+    # card it sees; the CPU's one here), answer as the daemon did
+    for extra in ([], ['--shard-gallery']):
+        r = subprocess.run(
+            [sys.executable, '-m', 'pps_tpu_torch.tools.retrieve',
+             '--device', 'cpu', '--cfg', str(root / 'cfg.yaml'),
+             '--weights', str(root / 'w.pkl'), '--load-index',
+             str(root / 'idx.npz'), '--topk', '4'] + extra +
+            ['--query', *site['queries']],
+            cwd=str(root), env=dict(_env(), **{
+                kernels.LAUNCH_COUNTS_ENV: str(root /
+                                               'retrieve.launches.json')}),
+            capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stderr[-3000:]
+        # the entry point reports its own kernel launches at exit: none on
+        # the CPU, where every wrapper runs its plain version
+        counts = json.loads((root / 'retrieve.launches.json').read_text())
+        assert counts == {'conv2d_int8': 0, 'zero_even': 0}
+        blocks = r.stdout.split('query: ')[1:]
+        assert len(blocks) == 3
+        for block, (p0, d0) in zip(blocks, before):
+            rows = [ln.split() for ln in block.splitlines()[1:]]
+            dists = np.array([float(row[1][2:]) for row in rows])
+            _assert_same_ranking([row[2] for row in rows], dists, p0, d0)
 
 
 def test_write_launch_counts(monkeypatch, tmp_path):

@@ -211,13 +211,16 @@ def test_search_reranked_matches(ivf):
 
 
 def test_sharding_and_bad_inputs_raise():
+    # sharding is ported (tests/test_torch_port_retrieval_sharded.py); it
+    # needs a mesh, and the serving CLIs' bootstrap builds one
     g, _ = _gallery(20)
-    with pytest.raises(NotImplementedError, match='slice 8'):
+    with pytest.raises(ValueError, match='mesh'):
         tserv.RetrievalIndex(g, list(range(20)), shard=True, device='cpu')
-    with pytest.raises(NotImplementedError, match='slice 8'):
+    with pytest.raises(ValueError, match='mesh'):
         tserv.RetrievalIndex.load('x.npz', shard=True)
-    with pytest.raises(NotImplementedError, match='slice 8'):
-        tserv.build_index_from_args(None, None, None, None, shard=True)
+    with pytest.raises(ValueError, match='required'):
+        tserv.build_index_from_args(None, None, None, None, shard=True,
+                                    device='cpu')
     idx = tserv.RetrievalIndex(g, list(range(20)), device='cpu')
     with pytest.raises(ValueError, match='width'):
         idx.search(np.zeros((1, 7), np.float32), 3)

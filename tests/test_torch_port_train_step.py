@@ -72,6 +72,16 @@ def _fresh_port_cfg():
 
 
 @pytest.fixture(autouse=True, scope='module')
+def _two_threads():
+    """Two intra-op threads: the suite runs six workers on one host, and
+    each worker's default of one thread per core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope='module')
 def _grad_enabled():
     """Autograd on for this module: another test module of the suite turns
     it off for the whole process when it is imported."""
