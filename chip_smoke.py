@@ -56,6 +56,19 @@ is non-zero:
               3 + 10 steps: ms/step and the gradient all-reduce's share
               (CUDA events); then one NCCL rank (world size 1) on the same
               step against phase train's bare step.
+8d. mp_agree, mp_train - the model axis (one launch of two ranks as a
+              (1, 2) mesh over gloo): the Duke yaml at full width (702
+              logits, 351 a rank: Market's 751 and CUHK03's 767 divide by
+              no model axis of 2), float32, global batch P 4 x K 2, CRM
+              and triplet on, against one rank on the card from the same
+              state and draws: the rows bitwise, the loss within 1e-5,
+              every update (the class slices gathered) by train_agree's
+              rule, and a planted fault (class_terms_not_over_model: the
+              class terms' 1/n_model undone) that must fail it; then bf16
+              at global batch 64, 3 + 5 steps: ms/step and the shares of
+              the model group's collectives and of the gradient's
+              all-reduce (CUDA events); the state saved as a sharded
+              checkpoint (.dcp).
 9. profile_train - torch.profiler over 2 train steps (table to stderr).
 10. train_net - ``engine.train.train_model`` on the flagship yaml
               (configs/market1501/pps_crm_triplet_R-50_1x.yaml) over a
@@ -85,6 +98,15 @@ is non-zero:
               the 23,100 test images: rank 0's features against the
               one-process run's (cosine >= 0.999), its CMC equal to numpy's
               on its own matrix and its mAP within 1e-6; imgs/s.
+12d. ckpt_sharded - mp_train's .dcp loaded into this process, bitwise
+              equal to the gathered state; ``tools.train_net`` on two ranks
+              (1, 2) under TPU.CKPT_FORMAT orbax over a 128-image
+              Duke-shaped subset: a continuous run with PPS_TPU_DUMP_JAXPR
+              (train_step.graph.txt written, nodes > 0) beside a run whose
+              rank 1 gets a SIGTERM once model_epoch1.dcp is on disk (both
+              exit 75, one model_preempt_*.dcp), then the same command
+              again: its model_final.pkl bitwise equal to the continuous
+              run's.
 13. remat   - the flagship train step with TPU.REMAT on and off from the
               same state and draws: the same loss and BN state; ms/step
               and peak memory of both.
@@ -165,11 +187,12 @@ the same synthetic Market set):
 The driver phases' own output (json_stats and Single Query lines, logs)
 goes to build/chip_smoke_logs/<phase>.log (a rank's to
 <phase>_rank<r>.log).  ``python3 chip_smoke.py --dp-rank CASE DIR`` is
-the process of one rank of a data-parallel phase.  Then a {"kernels": [...]}
-line (launches counted per phase and kernel while the main path, phases
-3, 5, 7, 8b-8c, 10-12c, 15-23 and 25-29, ran), the nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
-and prints no result.
+the process of one rank of a data- or model-parallel phase.  Then a
+{"phase_seconds": {...}} line (each phase's wall clock and the total), a
+{"kernels": [...]} line (launches counted per phase and kernel while the
+main path, phases 3, 5, 7, 8b-8d, 10-12d, 15-23 and 25-29, ran), the
+nvidia-smi line, and last {"ok": true, "device": {...}}.  Without a CUDA
+device it exits non-zero and prints no result.
 """
 
 import contextlib
@@ -276,7 +299,8 @@ FPN2_YAML = os.path.join(ROOT, 'configs', 'market1501',
                          'pps_crm_triplet_R-50-FPN2_1x.yaml')
 INT8_YAML = os.path.join(ROOT, 'configs', 'market1501',
                          'pps_crm_triplet_R-50_1x_int8.yaml')
-FPN_EPOCHS = 2                      # of the yaml's 121
+FPN_EPOCHS = 1                      # of the yaml's 121 (2 before the
+#   900 s budget; its loss gate is within epoch 0)
 INT8_PEAK_OPS = 1979e12             # H100 SXM dense int8 tensor-core peak
 INT8_CHECK_BATCH = 4                # the 53 body convs checked bitwise,
 #   here, at BATCH (the extraction batch; its tail is padded to BATCH) and
@@ -327,6 +351,62 @@ def cuda_ms(fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# the numpy metrics (the golden path) of the test phases' distance matrices
+# run in worker processes beside the phases that follow, and their gates
+# are applied before the script's last lines (settle_numpy_checks)
+NUMPY_WORKERS = 2
+_NUMPY = {'pool': None, 'pending': []}
+
+
+def numpy_metrics(host, q_ids, g_ids, q_cams, g_cams):
+    """numpy's mAP and CMC of a query x gallery distance matrix, and the
+    seconds they took."""
+    from pps_tpu_torch.evaluation import evaluator as ev
+    from pps_tpu_torch.evaluation import metrics
+    t0 = time.perf_counter()
+    m = metrics.mean_ap(host, q_ids, g_ids, q_cams, g_cams)
+    c = metrics.cmc(host, q_ids, g_ids, q_cams, g_cams, topk=10,
+                    **ev.CMC_KWARGS)
+    return m, c, time.perf_counter() - t0
+
+
+def defer_numpy_check(phase, host, q_ids, g_ids, q_cams, g_cams, map_card,
+                      cmc_card):
+    """Hold the card's mAP and CMC of ``phase`` against numpy's on the same
+    matrix ``host``, in a worker process (spawned: no CUDA state crosses)."""
+    if _NUMPY['pool'] is None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        _NUMPY['pool'] = ProcessPoolExecutor(
+            NUMPY_WORKERS, mp_context=multiprocessing.get_context('spawn'))
+    fut = _NUMPY['pool'].submit(numpy_metrics, host, q_ids, g_ids, q_cams,
+                                g_cams)
+    _NUMPY['pending'].append((phase, fut, float(map_card),
+                              np.asarray(cmc_card)))
+
+
+def settle_numpy_checks():
+    """Wait for every deferred numpy check and apply its gates (CMC equal,
+    mAP within MAP_ATOL); one numpy_checks line; the workers stopped."""
+    out = {}
+    try:
+        for phase, fut, m_card, c_card in _NUMPY['pending']:
+            m_np, c_np, secs = fut.result()
+            if not np.array_equal(c_card, c_np) or \
+                    abs(m_card - m_np) > MAP_ATOL:
+                raise AssertionError('{}: card CMC/mAP {} {} vs numpy {} {}'
+                                     .format(phase, c_card, m_card, c_np,
+                                             m_np))
+            out[phase] = {'map_card': m_card, 'map_numpy': m_np,
+                          'map_diff': abs(m_card - m_np), 'cmc_equal': True,
+                          'numpy_metrics_s': secs}
+    finally:
+        if _NUMPY['pool'] is not None:
+            _NUMPY['pool'].shutdown(cancel_futures=True)
+        _NUMPY['pool'], _NUMPY['pending'] = None, []
+    emit('numpy_checks', map_atol=MAP_ATOL, phases=out)
 
 
 def phase_build():
@@ -990,6 +1070,9 @@ class StepRecorder(object):
             step = make(*args, **kwargs)
 
             def recorded(*a, **k):
+                from torch._subclasses.fake_tensor import FakeTensor
+                if isinstance(a[1]['labels_int32'], FakeTensor):
+                    return step(*a, **k)  # the graph dump's trace
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record()
                 self.events.append(ev)
@@ -1103,17 +1186,25 @@ class _AfterSteps(object):
 
 
 def phase_resume(dev, out_root, decode, cont, cont_final):
-    """The train_net run again in a fresh directory, preempted mid-epoch
-    1, then auto-resumed to the end."""
+    """The train_net run again in a fresh directory holding train_net's
+    epoch-1 snapshot (so it auto-resumes at epoch 1: the epoch before was
+    train_net's own run, and the 900 s budget has no room for it twice),
+    preempted mid-epoch 1, then auto-resumed to the end."""
     import torch
+    from pps_tpu_torch.config import get_output_dir
     from pps_tpu_torch.engine.train import Preempted, train_model
     from pps_tpu_torch.utils.io import load_object
     cfg = driver_cfg(os.path.join(out_root, 'resume'))
+    out_dir = get_output_dir(cfg.TRAIN.DATASETS, training=True)
+    shutil.copyfile(os.path.join(os.path.dirname(cont_final),
+                                 'model_epoch1.pkl'),
+                    os.path.join(out_dir, 'model_epoch1.pkl'))
+    skipped = cont.at.index((1, 0))  # the steps of epoch 0
     with phase_log('resume') as log:
         t0 = time.perf_counter()
         try:
             train_model(cfg, decode_fn=decode, device=dev,
-                        preempt_event=_AfterSteps(PREEMPT_AFTER))
+                        preempt_event=_AfterSteps(PREEMPT_AFTER - skipped))
             raise AssertionError('the run was not preempted')
         except Preempted as p:
             point = (p.epoch, p.step, os.path.basename(p.path))
@@ -1125,7 +1216,7 @@ def phase_resume(dev, out_root, decode, cont, cont_final):
         raise AssertionError('preempted at {}, expected {}'.format(
             point, cont.at[PREEMPT_AFTER]))
     resumed = [ln for ln in _read(log) if 'Auto-resuming' in ln]
-    if not resumed or rec.at[0] != cont.at[PREEMPT_AFTER]:
+    if len(resumed) != 2 or rec.at[0] != cont.at[PREEMPT_AFTER]:
         raise AssertionError('did not resume at {}: {}'.format(
             cont.at[PREEMPT_AFTER], resumed))
     if rec.indices(0) != cont.indices(PREEMPT_AFTER):
@@ -1162,7 +1253,6 @@ def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec,
     import yaml
     from pps_tpu_torch.engine import test as test_lib
     from pps_tpu_torch.evaluation import evaluator as ev
-    from pps_tpu_torch.evaluation import metrics
     from pps_tpu_torch.evaluation.device_eval import cmc_map_device
     from pps_tpu_torch.models.model import build_model
     from pps_tpu_torch.ops.distance import euclidean_distmat
@@ -1234,16 +1324,8 @@ def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec,
     m_card, c_card = cmc_map_device(dm, ids[q], ids[g], cams[q], cams[g])
     m_card, c_card = float(m_card), c_card.cpu().numpy()
     card_s = time.perf_counter() - t0
-    host = dm.cpu().numpy()
-    t0 = time.perf_counter()
-    m_np = metrics.mean_ap(host, ids[q], ids[g], cams[q], cams[g])
-    c_np = metrics.cmc(host, ids[q], ids[g], cams[q], cams[g], topk=10,
-                       **ev.CMC_KWARGS)
-    numpy_s = time.perf_counter() - t0
-    if not np.array_equal(c_card, c_np):
-        raise AssertionError('CMC card {} numpy {}'.format(c_card, c_np))
-    if abs(m_card - m_np) > MAP_ATOL:
-        raise AssertionError('mAP card {} numpy {}'.format(m_card, m_np))
+    defer_numpy_check(name, dm.cpu().numpy(), ids[q], ids[g], cams[q],
+                      cams[g], m_card, c_card)
     if abs(results['market1501_test']['single']['mAP'] - m_card) > MAP_ATOL:
         raise AssertionError('run_inference mAP differs from the card\'s')
     pkl = load_object(os.path.join(out_dir, 'features.pkl'))
@@ -1258,8 +1340,8 @@ def phase_test_net(dev, out_root, cfg, final_pkl, decode, train_rec,
          stacked_extract_imgs_per_s=n / stacked_s,
          eval_s=seen['eval'][1], run_inference_s=seconds,
          pkl_vs_memory_max_abs=feat_diff, feat_atol=FEAT_ATOL,
-         map_card=m_card, map_numpy=m_np, map_diff=abs(m_card - m_np),
-         cmc_equal=True, card_metrics_s=card_s, numpy_metrics_s=numpy_s,
+         map_card=m_card, numpy_check='deferred: the numpy_checks line',
+         card_metrics_s=card_s,
          features_pkl_mb=os.path.getsize(os.path.join(
              out_dir, 'features.pkl')) / 1e6, log=log)
     return feats, roidb, {'mAP': m_card, 'extract_imgs_per_s': n / extract_s}
@@ -2126,7 +2208,6 @@ def phase_test_mixed(dev, out_root, phase, yaml_path, final_pkl, decode,
     import torch
     from pps_tpu_torch.engine import test as test_lib
     from pps_tpu_torch.evaluation import evaluator as ev
-    from pps_tpu_torch.evaluation import metrics
     from pps_tpu_torch.evaluation.device_eval import cmc_map_device
     from pps_tpu_torch.data.minibatch import pad_to_bucket
     from pps_tpu_torch.models.model import build_model
@@ -2210,15 +2291,8 @@ def phase_test_mixed(dev, out_root, phase, yaml_path, final_pkl, decode,
                            ft[torch.as_tensor(g, device=dev)])
     m_card, c_card = cmc_map_device(dm, ids[q], ids[g], cams[q], cams[g])
     m_card, c_card = float(m_card), c_card.cpu().numpy()
-    host = dm.cpu().numpy()
-    t0 = time.perf_counter()
-    m_np = metrics.mean_ap(host, ids[q], ids[g], cams[q], cams[g])
-    c_np = metrics.cmc(host, ids[q], ids[g], cams[q], cams[g], topk=10,
-                       **ev.CMC_KWARGS)
-    numpy_s = time.perf_counter() - t0
-    if not np.array_equal(c_card, c_np) or abs(m_card - m_np) > MAP_ATOL:
-        raise AssertionError('{}: card CMC/mAP {} {} vs numpy {} {}'.format(
-            phase, c_card, m_card, c_np, m_np))
+    defer_numpy_check(phase, dm.cpu().numpy(), ids[q], ids[g], cams[q],
+                      cams[g], m_card, c_card)
     res = results[cfg.TEST.DATASETS[0]]['single']['mAP']
     if abs(res - m_card) > MAP_ATOL:
         raise AssertionError('{}: run_inference mAP {} vs {}'.format(
@@ -2233,9 +2307,8 @@ def phase_test_mixed(dev, out_root, phase, yaml_path, final_pkl, decode,
          subset_stream_imgs_per_s=len(sub) / mem_s,
          subset_decode_only_imgs_per_s=len(sub) / decode_s,
          subset_pad_one_thread_imgs_per_s=len(sub) / pad_s,
-         feat_atol=FEAT_ATOL, map_card=m_card, map_numpy=m_np,
-         map_diff=abs(m_card - m_np), cmc_equal=True,
-         numpy_metrics_s=numpy_s, log=log)
+         feat_atol=FEAT_ATOL, map_card=m_card,
+         numpy_check='deferred: the numpy_checks line', log=log)
     return feats, roidb
 
 
@@ -2311,7 +2384,8 @@ IVF_RECALL_QUERIES, IVF_NPROBES = 1024, (8, 16, 32)
 LATENCY_QUERIES = 20
 # timed runs of each exact route at 1 query, at the flat route's gate
 # (SCALE_FLAT_QUERIES) and at every query
-ROUTE_REPEATS = {1: 10, SCALE_FLAT_QUERIES: 5, QUERIES: 2}
+ROUTE_REPEATS = {1: 5, SCALE_FLAT_QUERIES: 3, QUERIES: 1}  # {1: 10, 64: 5,
+#   3,368: 2} before the 900 s budget
 FP32_PEAK_FLOPS = 67e12             # H100 SXM float32 outside tensor cores
 TIE_EPS = 1e-5                      # scan vs flat, IVF vs exact: indices
 #   held wherever neighbouring distances differ by more than this (the
@@ -2638,17 +2712,10 @@ def phase_test_cuhk03_rerank(dev, out_root, final_pkl, decode):
     train_cuhk03's pkl: the card route's re-ranked block against the C++
     engine on the same matrices, numpy against both on a subset, the
     rank-list images."""
-    import torch
-    from pps_tpu_torch import native
     from pps_tpu_torch.config import (cfg, reset_cfg, merge_cfg_from_file,
                                       merge_cfg_from_list,
                                       assert_and_infer_cfg)
-    from pps_tpu_torch.data.transforms import _cv2
     from pps_tpu_torch.engine import test as test_lib
-    from pps_tpu_torch.evaluation import evaluator as ev
-    from pps_tpu_torch.evaluation.rerank import (re_ranking,
-                                                 rerank_distmat_device)
-    from pps_tpu_torch.ops.distance import euclidean_distmat
     phase = 'test_cuhk03_rerank'
     out_dir = os.path.join(out_root, phase)
     reset_cfg()
@@ -2659,6 +2726,48 @@ def phase_test_cuhk03_rerank(dev, out_root, final_pkl, decode):
     t0 = time.perf_counter()
     _write_images([e['image'] for e in roidb], decode)  # REID.VIS reads
     write_s = time.perf_counter() - t0
+    # the same yaml through the test_net CLI, as a user runs it, started
+    # here beside the in-process run: the split from $PPS_TPU_DATA_DIR
+    # (cuhk03/labeled/), the images decoded from the files just written
+    # (JPEG, so its features are not the in-process run's)
+    data_dir = os.path.join(out_root, 'cli_data')
+    os.makedirs(os.path.join(data_dir, 'cuhk03'), exist_ok=True)
+    os.symlink(os.path.dirname(os.path.dirname(roidb[0]['image'])),
+               os.path.join(data_dir, 'cuhk03', 'labeled'))
+    cli_log = os.path.join(ROOT, 'build', 'chip_smoke_logs',
+                           phase + '_cli.log')
+    t_cli = time.perf_counter()
+    with open(cli_log, 'w') as f:
+        cli_proc = subprocess.Popen(
+            [sys.executable, '-m', 'pps_tpu_torch.tools.test_net',
+             '--device', str(dev), '--cfg', CUHK03_RERANK_YAML,
+             'TEST.WEIGHTS', final_pkl,
+             'OUTPUT_DIR', os.path.join(out_root, 'cli_test')],
+            cwd=ROOT, env=dict(_child_env(phase + '_cli'),
+                               PPS_TPU_DATA_DIR=data_dir),
+            stdout=f, stderr=subprocess.STDOUT)
+    try:
+        return _cuhk03_rerank_gates(dev, out_dir, final_pkl, decode, cfg,
+                                    roidb, write_s, cli_proc, cli_log,
+                                    t_cli)
+    finally:
+        if cli_proc.poll() is None:
+            cli_proc.kill()
+            cli_proc.wait()
+
+
+def _cuhk03_rerank_gates(dev, out_dir, final_pkl, decode, cfg, roidb,
+                         write_s, cli_proc, cli_log, t_cli):
+    """test_cuhk03_rerank's in-process run and gates, then the CLI's."""
+    import torch
+    from pps_tpu_torch import native
+    from pps_tpu_torch.engine import test as test_lib
+    from pps_tpu_torch.evaluation import evaluator as ev
+    from pps_tpu_torch.data.transforms import _cv2
+    from pps_tpu_torch.evaluation.rerank import (re_ranking,
+                                                 rerank_distmat_device)
+    from pps_tpu_torch.ops.distance import euclidean_distmat
+    phase = 'test_cuhk03_rerank'
     seen = {}
     extract, evaluate = (test_lib.extract_dataset_features,
                          test_lib.evaluate_dataset)
@@ -2737,36 +2846,21 @@ def phase_test_cuhk03_rerank(dev, out_root, final_pkl, decode):
         if im is None or im.ndim != 3:
             raise AssertionError('{}: no rank-list image for {}'.format(
                 phase, p))
-    # the same yaml through the test_net CLI, as a user runs it: the split
-    # from $PPS_TPU_DATA_DIR (cuhk03/labeled/), the images decoded from the
-    # files written above (JPEG, so its features are not the run's above)
-    data_dir = os.path.join(out_root, 'cli_data')
-    os.makedirs(os.path.join(data_dir, 'cuhk03'), exist_ok=True)
-    os.symlink(os.path.dirname(os.path.dirname(roidb[0]['image'])),
-               os.path.join(data_dir, 'cuhk03', 'labeled'))
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, '-m', 'pps_tpu_torch.tools.test_net', '--device',
-         str(dev), '--cfg', CUHK03_RERANK_YAML, 'TEST.WEIGHTS', final_pkl,
-         'OUTPUT_DIR', os.path.join(out_root, 'cli_test')],
-        cwd=ROOT, env=dict(_child_env(phase + '_cli'),
-                           PPS_TPU_DATA_DIR=data_dir),
-        capture_output=True, text=True, timeout=900)
-    cli_s = time.perf_counter() - t0
-    with open(os.path.join(os.path.dirname(log), phase + '_cli.log'),
-              'w') as f:
-        f.write(r.stdout + r.stderr)
-    cli = [ln for ln in r.stdout.splitlines() if '[mAP:' in ln]
-    if r.returncode != 0 or [ln.split('[')[0].strip() for ln in cli] != \
+    # the test_net CLI started beside the run above
+    code = cli_proc.wait(timeout=900)
+    cli_s = time.perf_counter() - t_cli
+    out = '\n'.join(_read(cli_log))
+    cli = [ln for ln in out.splitlines() if '[mAP:' in ln]
+    if code != 0 or [ln.split('[')[0].strip() for ln in cli] != \
             ['Single Query:', 'Re-ranked Single Query:']:
         raise AssertionError('{}: test_net CLI exit {}, printed {}\n{}'
-                             .format(phase, r.returncode, cli,
-                                     r.stderr[-3000:]))
+                             .format(phase, code, cli, out[-3000:]))
     print(phase + ' (test_net CLI): ' + cli[1], flush=True)
     emit(phase, config=os.path.relpath(CUHK03_RERANK_YAML, ROOT),
          queries=int(q.sum()), gallery=int(g.sum()), single_query=single[0],
          rerank_line=rr_line[0], test_net_cli_lines=cli,
-         test_net_cli_s=cli_s, run_inference_s=seconds,
+         test_net_cli_s=cli_s, test_net_cli_beside_run_inference=True,
+         run_inference_s=seconds,
          extract_s=seen['extract'][1], eval_and_vis_s=seen['eval'][1],
          write_images_s=write_s, vis_images=len(os.listdir(vis_dir)),
          vis_checked=len(q_paths), card_vs_native=report, subset=subset,
@@ -3089,7 +3183,11 @@ def phase_serve_daemon(dev, final_pkl, roidb, decode):
                         np.array([float(row[1][2:]) for row in rows])))
         return out
 
-    plain = retrieve('retrieve')
+    # both children at once (each one's seconds include the other's load)
+    with ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(retrieve, 'retrieve'),
+                pool.submit(retrieve, 'retrieve_sharded', ['--shard-gallery'])]
+        plain, sharded = [f.result() for f in futs]
     for i, got in enumerate(plain):
         # retrieve embeds its queries as one batch (the bf16 body at another
         # batch size), and prints distances to 4 decimals (5e-5 of rounding)
@@ -3098,7 +3196,6 @@ def phase_serve_daemon(dev, final_pkl, roidb, decode):
     # the gallery row-sharded (one shard per card it sees) answers as the
     # unsharded index does: the same embeddings and an exact merge, the
     # scan on another route (a distance's last bits, printed to 4 decimals)
-    sharded = retrieve('retrieve_sharded', ['--shard-gallery'])
     for i, got in enumerate(sharded):
         _same_ranking('retrieve --shard-gallery query {}'.format(i), got,
                       plain[i], eps=DIST2_ATOL, atol=DIST2_ATOL + 5e-5)
@@ -3124,11 +3221,15 @@ DP_LOSS_RTOL = 1e-5                 # 2 ranks vs 1, float32: the same
 #   math, the BN sums and the loss shares added in another order
 DP_STATE_REL = 1e-4                 # BN running state after one step, by
 #   RMS against its own: the global statistics as sums over the count
-DP_WARMUP, DP_TIMED = 3, 10         # dp_train's steps
+DP_WARMUP, DP_TIMED = 3, 5          # dp_train's steps (10 timed before
+#   the 900 s budget)
 DP_NET_EPOCHS = 1                   # dp_train_net: one epoch at global
 DP_NET_BATCH = BATCH * DP_WORLD     # batch 128 (IMS_PER_BATCH x NUM_GPUS)
-DP_PREEMPT_ITER = 20                # SIGTERM to rank 1 once rank 0 logged
-#   this iteration (a json_stats line every 20)
+DP_PREEMPT_ITER = 20                # dp_train_net's continuous run stops
+#   (SIGTERM to rank 1) once rank 0 logged this iteration (a json_stats
+#   line every 20), the preempted run at iteration 0; before the 900 s
+#   budget the continuous run ran the epoch out and the preempted run
+#   stopped here
 DP_TEST_MIN_COS = 0.999             # 2 ranks vs 1 process, bf16: each
 #   image embedded in a batch of another size (cuDNN picks other kernels;
 #   the daemon saw distance differences of 9.2e-4 for the same reason)
@@ -3155,7 +3256,8 @@ class _Ranks(object):
     build/chip_smoke_logs/<phase>_rank<r>.log (a file, never a pipe: a
     full pipe would block a rank inside a collective)."""
 
-    def __init__(self, phase, case, payload, world=DP_WORLD, extra=None):
+    def __init__(self, phase, case, payload, world=DP_WORLD, extra=None,
+                 extra_env=None):
         import pickle
         self.dir = os.path.join(ROOT, 'build', 'chip_smoke_dp', phase)
         shutil.rmtree(self.dir, ignore_errors=True)
@@ -3168,7 +3270,7 @@ class _Ranks(object):
             env = _child_env('{}_rank{}'.format(phase, r))
             env.update(RANK=str(r), WORLD_SIZE=str(world),
                        LOCAL_RANK=str(r), MASTER_ADDR='localhost',
-                       MASTER_PORT=str(port))
+                       MASTER_PORT=str(port), **(extra_env or {}))
             log = os.path.join(ROOT, 'build', 'chip_smoke_logs',
                                '{}_rank{}.log'.format(phase, r))
             self.logs.append(log)
@@ -3227,8 +3329,8 @@ def triplet_only():
     from pps_tpu_torch.models import losses
     ce = losses.softmax_ce_losses
 
-    def zeroed(logits, labels, denom=None):
-        loss, acc = ce(logits, labels, denom)
+    def zeroed(*a, **k):
+        loss, acc = ce(*a, **k)
         return loss * 0.0, acc
     losses.softmax_ce_losses = zeroed
     try:
@@ -3249,6 +3351,30 @@ def triplet_not_over_world(world):
         yield
     finally:
         losses.TRIPLET_WEIGHT = weight
+
+
+@contextlib.contextmanager
+def class_terms_not_over_model(n_model):
+    """A planted fault: the softmax CE and the CRM loss times the model
+    axis's size, which undoes their 1/n_model (``model.train_forward``):
+    each model rank's share of the feature gradient, and the class
+    slices' gradients, doubled at n_model 2.  The model-axis gates must
+    refuse it."""
+    from pps_tpu_torch.models import losses
+    ce, crm = losses.softmax_ce_losses, losses.crm_loss
+
+    def ce_times(*a, **k):
+        loss, acc = ce(*a, **k)
+        return loss * n_model, acc
+
+    def crm_times(*a, **k):
+        loss, acc = crm(*a, **k)
+        return loss * n_model, acc
+    losses.softmax_ce_losses, losses.crm_loss = ce_times, crm_times
+    try:
+        yield
+    finally:
+        losses.softmax_ce_losses, losses.crm_loss = ce, crm
 
 
 def _dp_step(cfg, dev, mesh, batch_np, seed, triplet=None):
@@ -3421,12 +3547,15 @@ def dp_rank_train(p, mesh, dev):
 
 
 def _market_on(p):
-    """A rank's view of the synthetic Market set: the parent's catalog
-    entries, and decodes made from the file names (no image files)."""
+    """A rank's view of the synthetic Market set (or, with ``p['decoder']``
+    'duke', of a Duke-shaped one): the parent's catalog entries, and
+    decodes made from the file names (no image files)."""
     from pps_tpu_torch.data import catalog, transforms
     for name, (imdir, ann) in p['datasets'].items():
         catalog.register_dataset(name, imdir, ann)
-    transforms.decode_image = MarketDecoder()
+    transforms.decode_image = (
+        MixedDecoder(size_table(DUKE), seed=DUKE['seed'])
+        if p.get('decoder') == 'duke' else MarketDecoder())
 
 
 def dp_rank_train_net(p):
@@ -3480,7 +3609,7 @@ def dp_rank_test_net(p, mesh, dev):
 
 
 DP_CASES = {'agree': dp_rank_agree, 'train': dp_rank_train,
-            'test_net': dp_rank_test_net}
+            'test_net': dp_rank_test_net, 'mp': lambda *a: mp_rank_main(*a)}
 
 
 def dp_rank_main(case, workdir):
@@ -3500,7 +3629,8 @@ def dp_rank_main(case, workdir):
         else:
             dev = mesh_lib.init_distributed(device=payload['device'],
                                             backend=payload.get('backend'))
-            mesh = mesh_lib.build_mesh(device=dev)
+            mesh = mesh_lib.build_mesh(
+                device=dev, mesh_shape=payload.get('mesh_shape'))
             print('rank {}: {}, staging: none (gloo copies CUDA tensors '
                   'through host memory itself)'.format(rank, mesh),
                   flush=True)
@@ -3569,11 +3699,30 @@ def _market_datasets():
             for n in ('market1501_trainval', 'market1501_test')}
 
 
+def _sigterm_rank1_after(ranks, it):
+    """SIGTERM to rank 1 of ``ranks`` once rank 0 logged iteration ``it``
+    (a json_stats line)."""
+    import signal
+    mark = '"iter": {},'.format(it)
+    try:
+        while not any(mark in ln for ln in _read(ranks.logs[0])):
+            if any(p.poll() is not None for p in ranks.procs) or \
+                    time.perf_counter() - ranks.t0 > DP_TIMEOUT_S:
+                raise AssertionError('rank 0 never logged iteration {}'
+                                     .format(it))
+            time.sleep(0.2)
+        ranks.procs[1].send_signal(signal.SIGTERM)
+    except BaseException:
+        ranks.kill()
+        raise
+
+
 def phase_dp_train_net(dev, out_root):
     """``tools.train_net`` on two ranks (flagship yaml, one epoch at global
-    batch 128): a continuous run; a run whose rank 1 gets a SIGTERM once
-    rank 0 logged iteration DP_PREEMPT_ITER; the same command again."""
-    import signal
+    batch 128): a continuous run, stopped (SIGTERM to rank 1) once rank 0
+    logged iteration DP_PREEMPT_ITER; a run whose rank 1 gets a SIGTERM
+    once rank 0 logged iteration 0; the same command again, to the epoch's
+    end, whose first step's loss is the continuous run's at that step."""
     card = _rank_device(dev)
 
     def payload(out_dir):
@@ -3585,7 +3734,8 @@ def phase_dp_train_net(dev, out_root):
     t0 = time.perf_counter()
     ranks = _Ranks('dp_train_net', 'train_net',
                    payload(os.path.join(out_root, 'dp_cont')))
-    cont = ranks.results()
+    _sigterm_rank1_after(ranks, DP_PREEMPT_ITER)
+    cont = ranks.results(ok=(75,))
     cont_s = time.perf_counter() - t0
     json_lines = [sum(ln.startswith('json_stats:') for ln in _read(log))
                   for log in ranks.logs]
@@ -3594,23 +3744,14 @@ def phase_dp_train_net(dev, out_root):
             json_lines))
     pre_dir = os.path.join(out_root, 'dp_pre')
     ranks = _Ranks('dp_train_net_pre', 'train_net', payload(pre_dir))
-    mark = '"iter": {},'.format(DP_PREEMPT_ITER)
-    try:
-        while not any(mark in ln for ln in _read(ranks.logs[0])):
-            if any(p.poll() is not None for p in ranks.procs) or \
-                    time.perf_counter() - ranks.t0 > DP_TIMEOUT_S:
-                raise AssertionError('rank 0 never logged iteration {}'
-                                     .format(DP_PREEMPT_ITER))
-            time.sleep(0.2)
-        ranks.procs[1].send_signal(signal.SIGTERM)
-    except BaseException:
-        ranks.kill()
-        raise
+    _sigterm_rank1_after(ranks, 0)
     pre = ranks.results(ok=(75,))
     codes = [p.returncode for p in ranks.procs]
     steps = [len(r['losses']) for r in pre]
-    if len(set(steps)) != 1:
-        raise AssertionError('ranks stopped after {} steps'.format(steps))
+    if len(set(steps)) != 1 or steps[0] >= len(cont[0]['losses']):
+        raise AssertionError('ranks stopped after {} steps (the continuous '
+                             'run after {})'.format(
+                                 steps, len(cont[0]['losses'])))
     train_dir = os.path.join(pre_dir, 'train', 'market1501_trainval')
     preempt = [n for n in os.listdir(train_dir)
                if n.startswith('model_preempt_')]
@@ -3620,17 +3761,22 @@ def phase_dp_train_net(dev, out_root):
                      payload(pre_dir)).results()
     first, want = resumed[0]['losses'][0], cont[0]['losses'][steps[0]]
     rel = abs(first - want) / abs(want)
-    if rel > RESUME_LOSS_RTOL or resumed[0]['at'][0] != (0, steps[0]):
-        raise AssertionError('resumed at {} loss {} vs continuous {}'.format(
-            resumed[0]['at'][0], first, want))
+    ipe = TRAIN_IDS * TRAIN_PER_ID * 2 // DP_NET_BATCH  # flipped entries
+    if rel > RESUME_LOSS_RTOL or resumed[0]['at'][0] != (0, steps[0]) or \
+            resumed[0]['at'][-1] != (0, ipe - 1):
+        raise AssertionError('resumed at {} to {}, loss {} vs continuous {}'
+                             .format(resumed[0]['at'][0],
+                                     resumed[0]['at'][-1], first, want))
     ms = float(np.median(cont[0]['step_ms']))
     emit('dp_train_net', config=os.path.relpath(FLAGSHIP_YAML, ROOT),
          world=DP_WORLD, global_batch=DP_NET_BATCH, epochs=DP_NET_EPOCHS,
-         steps=len(cont[0]['losses']), ms_per_step=ms,
+         continuous_steps=len(cont[0]['losses']), ms_per_step=ms,
          imgs_per_s=DP_NET_BATCH / ms * 1e3, continuous_wall_s=cont_s,
          json_stats_lines_by_rank=json_lines, preempt_exit_codes=codes,
          preempted_after_steps=steps[0], resume_point=preempt[0],
-         resumed_steps=len(resumed[0]['losses']), first_resumed_loss=first,
+         resumed_steps=len(resumed[0]['losses']),
+         resumed_to_the_epoch_end=steps[0] + len(resumed[0]['losses']),
+         first_resumed_loss=first,
          continuous_loss=want, loss_rel=rel, loss_rtol=RESUME_LOSS_RTOL,
          loss_first=cont[0]['losses'][0], loss_last=cont[0]['losses'][-1],
          wall_s=time.perf_counter() - t0, card=_CARD.get('smi'),
@@ -3645,7 +3791,6 @@ def phase_dp_test_net(dev, out_root, final_pkl, feats_one):
     import torch
     from pps_tpu_torch.engine import test as test_lib
     from pps_tpu_torch.evaluation import evaluator as ev
-    from pps_tpu_torch.evaluation import metrics
     from pps_tpu_torch.ops.distance import euclidean_distmat
     from pps_tpu_torch.utils.io import load_object
     out_dir = os.path.join(out_root, 'dp_test_net')
@@ -3670,23 +3815,421 @@ def phase_dp_test_net(dev, out_root, final_pkl, feats_one):
     ft = torch.as_tensor(feats, device=dev)
     host = euclidean_distmat(ft[torch.as_tensor(q, device=dev)],
                              ft[torch.as_tensor(g, device=dev)]).cpu().numpy()
-    m_np = metrics.mean_ap(host, ids[q], ids[g], cams[q], cams[g])
-    c_np = metrics.cmc(host, ids[q], ids[g], cams[q], cams[g], topk=10,
-                       **ev.CMC_KWARGS)
     single = r0['results']['market1501_test']['single']
-    if not np.array_equal(single['cmc'], c_np) or \
-            abs(single['mAP'] - m_np) > MAP_ATOL:
-        raise AssertionError('rank 0 mAP {} CMC {} vs numpy {} {}'.format(
-            single['mAP'], single['cmc'][:5], m_np, c_np[:5]))
+    defer_numpy_check('dp_test_net', host, ids[q], ids[g], cams[q], cams[g],
+                      single['mAP'], single['cmc'])
     n = len(roidb)
     emit('dp_test_net', world=DP_WORLD, images=n, mAP=single['mAP'],
-         cmc1=single['cmc1'], map_numpy=m_np, cmc_equal=True,
+         cmc1=single['cmc1'],
+         numpy_check='deferred: the numpy_checks line',
          min_cos_vs_one_process=float(cos.min()),
          min_cos=DP_TEST_MIN_COS, extract_s=r0['extract_s'],
          extract_imgs_per_s=n / r0['extract_s'], wall_s=wall,
          card=_CARD.get('smi'),
          note='2 ranks share one H100: a check that the path works, not a '
               'scaling figure')
+
+
+# ---------------------------------------------------------------------------
+# the model axis: two ranks as a (1, 2) mesh on the card over gloo, the
+# Duke yaml (702 logits, 351 a rank: Market's 751 and CUHK03's 767 divide
+# by no model axis of 2, so their FCs would stay replicated); the sharded
+# checkpoint; the train-step graph dump
+# ---------------------------------------------------------------------------
+
+MP_MESH = (1, 2)
+MP_AGREE_P, MP_AGREE_K = 4, 2       # mp_agree's global batch
+MP_WARMUP, MP_TIMED = 3, 5          # mp_train's steps
+MP_NET_IDS, MP_NET_PER_ID = 32, 4   # ckpt_sharded's train_net: a Duke-
+#   shaped subset, 128 images, global batch 64 (IMS_PER_BATCH 32 x
+#   NUM_GPUS 2, P 4 x K 8 a rank): 2 steps an epoch
+MP_NET_P, MP_NET_K = 4, 8
+MP_NET_EPOCHS = 3
+
+
+def mp_cfg(dtype, ims_per_batch, p, k):
+    """The Duke yaml at full width on a (1, 2) mesh: ``dtype``, the batch
+    ``ims_per_batch`` = P x K."""
+    from pps_tpu_torch.config import (assert_and_infer_cfg, cfg,
+                                      merge_cfg_from_file,
+                                      merge_cfg_from_list, reset_cfg)
+    reset_cfg()
+    merge_cfg_from_file(DUKE['yaml'])
+    merge_cfg_from_list(['MODEL.DTYPE', dtype, 'TRAIN.WEIGHTS', "''",
+                         'TRAIN.IMS_PER_BATCH', str(ims_per_batch),
+                         'REID.P', str(p), 'REID.K', str(k),
+                         'TPU.MESH_SHAPE', str(MP_MESH)])
+    assert_and_infer_cfg()
+    return cfg
+
+
+def _mp_step(cfg, dev, mesh, batch_np, planted=False):
+    """One train step of the Duke model from make_trainer's init (residual
+    scales 0.01) on ``mesh`` (None: one rank), draws from a generator
+    seeded 5, the triplet term on (loss_scale_factor 1).  Returns (start
+    params, the new state with the class slices gathered, logs, the
+    augmented rows)."""
+    import torch
+    from pps_tpu_torch.parallel import train_step as ts_lib
+    model, step, ts = make_trainer(cfg, dev, seed=1, residual_gamma=0.01,
+                                   mesh=mesh)
+    start = {k: v.cpu() for k, v in ts['params'].items()}
+    ts = ts_lib.place_train_state(mesh, ts)
+    batch = ts_lib.shard_batch(mesh, {k: torch.as_tensor(v).to(dev)
+                                      for k, v in batch_np.items()})
+    seen = []
+    fwd = model.train_forward
+
+    def record(p, s, b, *a, **k):
+        seen.append(b['data'].detach().cpu().numpy())
+        return fwd(p, s, b, *a, **k)
+    model.train_forward = record
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with contextlib.ExitStack() as stack:
+        if planted:
+            stack.enter_context(class_terms_not_over_model(mesh.n_model))
+        ts, logs = step(ts, batch, 0.01, 1.0, gen)
+    ts = ts_lib.gather_train_state(mesh, ts, model.head_spec['num_logits'])
+    return start, ts, logs, seen[0]
+
+
+def mp_rank_agree(p, mesh, dev):
+    """Rank side of mp_agree: the (1, 2) step, then (rank 0) the 1-rank
+    step on the same card from the same state and draws, compared by
+    train_agree's rule (the class-sharded params gathered, and apart); the
+    planted fault's (1, 2) step must fail that rule."""
+    from pps_tpu_torch.parallel import mesh as mesh_lib
+    pk = p['agree_pk']
+    cfg = mp_cfg('float32', pk[0] * pk[1], *pk)
+    k_logits = cfg.MODEL.NUM_CLASSES - 1
+    start, two, logs2, rows = _mp_step(cfg, dev, mesh, p['agree_batch'])
+    _, planted, _, _ = _mp_step(cfg, dev, mesh, p['agree_batch'],
+                                planted=True)
+    sharded = sorted(n for n, r in mesh_lib.param_shardings(
+        mesh, two['params']).items() if isinstance(r, mesh_lib.ClassSharding))
+    if mesh.rank:
+        return {}
+    _, one, logs1, rows1 = _mp_step(cfg, dev, None, p['agree_batch'])
+    if not np.array_equal(rows, rows1):
+        raise AssertionError('the (1, 2) ranks\' rows differ from the '
+                             '1-rank batch')
+    l2, l1 = float(logs2['loss']), float(logs1['loss'])
+    if abs(l2 - l1) > DP_LOSS_RTOL * abs(l1):
+        raise AssertionError('loss (1, 2) {} 1 rank {}'.format(l2, l1))
+    worst, bad = _dp_updates(start, two, one)
+    if bad is not None:
+        raise AssertionError('(1, 2) vs 1 rank after one step: ' + bad)
+    worst_sharded, bad = _dp_updates({k: start[k] for k in sharded},
+                                     two, one)
+    if bad is not None:
+        raise AssertionError('class-sharded params: ' + bad)
+    worst['state'] = max(_rel_rms(two['state'][k].cpu(),
+                                  one['state'][k].cpu())
+                         for k in one['state'])
+    if worst['state'] > DP_STATE_REL:
+        raise AssertionError('BN state {}'.format(worst['state']))
+    worst_planted, caught = _dp_updates(start, planted, one)
+    if caught is None:
+        raise AssertionError('the update rule passed the planted fault '
+                             '(worst {})'.format(worst_planted))
+    return {'logits': k_logits, 'logits_per_rank': k_logits // mesh.n_model,
+            'class_sharded': sharded, 'loss_1x2': l2, 'loss_1_rank': l1,
+            'loss_rel': abs(l2 - l1) / abs(l1), 'worst_rel': worst,
+            'worst_rel_class_sharded': worst_sharded, 'rows_bitwise': True,
+            'planted': {'worst_rel': worst_planted, 'caught_at': caught}}
+
+
+class _CollectiveClock(object):
+    """While active, a CUDA event pair around every collective of
+    ``parallel/collectives.py``, tagged 'gradient' (the flat gradient
+    all-reduce), 'logs' (the logs' all-reduce over every rank) or 'model'
+    (the model group's: the log-sum-exp shifts and sums, the label
+    logits, the argmaxes, the CRM's softmax and loss)."""
+
+    def __init__(self):
+        self.pairs, self._tag = [], 'model'
+
+    def __enter__(self):
+        import torch
+        from pps_tpu_torch.parallel import collectives as col
+        self._saved = {n: getattr(col, n) for n in (
+            '_all_reduce_', '_all_gather', 'all_reduce_flat_',
+            'all_reduce')}
+        saved = self._saved
+
+        def clocked(name):
+            def fn(*a, **k):
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = saved[name](*a, **k)
+                ev[1].record()
+                self.pairs.append((self._tag, ev))
+                return out
+            return fn
+
+        def tagged(name, tag_of):
+            def fn(*a, **k):
+                old, self._tag = self._tag, tag_of(*a, **k)
+                try:
+                    return saved[name](*a, **k)
+                finally:
+                    self._tag = old
+            return fn
+        col._all_reduce_ = clocked('_all_reduce_')
+        col._all_gather = clocked('_all_gather')
+        col.all_reduce_flat_ = tagged('all_reduce_flat_',
+                                      lambda *a, **k: 'gradient')
+        col.all_reduce = tagged(
+            'all_reduce', lambda *a, **k: 'logs' if k.get('axis') == 'world'
+            else 'model')
+        return self
+
+    def __exit__(self, *exc):
+        from pps_tpu_torch.parallel import collectives as col
+        for n, f in self._saved.items():
+            setattr(col, n, f)
+        return False
+
+    def ms(self):
+        out = {}
+        for tag, (a, b) in self.pairs:
+            out[tag] = out.get(tag, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def mp_rank_train(p, mesh, dev):
+    """Rank side of mp_train: MP_WARMUP + MP_TIMED bf16 steps of the Duke
+    model at global batch 64 on the (1, 2) mesh, timed by CUDA events, the
+    collectives clocked; then the placed state saved as a sharded
+    checkpoint (every rank its shards), and the gathered state written by
+    rank 0 for the parent's bitwise load check."""
+    import torch
+    from pps_tpu_torch.engine import checkpoint as ckpt
+    from pps_tpu_torch.parallel import train_step as ts_lib
+    pk = p['train_pk']
+    cfg = mp_cfg('bfloat16', pk[0] * pk[1], *pk)
+    model, step, ts = make_trainer(cfg, dev, seed=0, mesh=mesh)
+    ts = ts_lib.place_train_state(mesh, ts)
+    batch = ts_lib.shard_batch(mesh, {k: torch.as_tensor(v).to(dev)
+                                      for k, v in p['train_batch'].items()})
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(MP_WARMUP):
+        ts, logs = step(ts, batch, 0.01, 1.0, gen)
+    torch.cuda.synchronize()
+    losses = []
+    with _CollectiveClock() as clock:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(MP_TIMED):
+            ts, logs = step(ts, batch, 0.01, 1.0, gen)
+            losses.append(logs['loss'])
+        b.record()
+        b.synchronize()
+    ms = a.elapsed_time(b) / MP_TIMED
+    coll = {k: v / MP_TIMED for k, v in clock.ms().items()}
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError('non-finite loss {}'.format(losses))
+    k_logits = model.head_spec['num_logits']
+    local_fc = int(ts['params']['pps_fc_w'].shape[-1])
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint_dcp(p['dcp'], ts, mesh=mesh, num_logits=k_logits,
+                             block=True)
+    save_s = time.perf_counter() - t0
+    full = ts_lib.gather_train_state(mesh, ts, k_logits)
+    if mesh.rank == 0:
+        torch.save({part: ({n: (t.cpu() if torch.is_tensor(t) else
+                                {m: x.cpu() for m, x in t.items()})
+                            for n, t in tree.items()})
+                    for part, tree in full.items()}, p['gathered'])
+    return {'ms_per_step': ms, 'batch_per_rank':
+            int(batch['labels_int32'].shape[0]),
+            'local_fc_classes': local_fc,
+            'collective_ms_per_step': coll,
+            'model_group_share': coll.get('model', 0.0) / ms,
+            'gradient_share': coll.get('gradient', 0.0) / ms,
+            'losses': [float(v) for v in losses], 'dcp_save_s': save_s}
+
+
+def mp_rank_main(p, mesh, dev):
+    """mp_agree then mp_train on the same ranks (one launch)."""
+    return {'agree': mp_rank_agree(p, mesh, dev),
+            'train': mp_rank_train(p, mesh, dev)}
+
+
+def phase_mp(dev, gallery):
+    """mp_agree and mp_train: two ranks as a (1, 2) mesh on the card over
+    gloo, the Duke yaml at full width (see mp_rank_agree, mp_rank_train).
+    Returns the sharded checkpoint directory and the gathered state's
+    file, for ckpt_sharded."""
+    from pps_tpu_torch.config import cfg as gcfg
+    d = os.path.join(ROOT, 'build', 'chip_smoke_mp')
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    mp_cfg('float32', 8, 4, 2)
+    k_classes = gcfg.MODEL.NUM_CLASSES
+    from pps_tpu_torch.flagship import flagship_cfg
+    flagship_cfg()  # the global cfg back to the flagship's
+    t0 = time.perf_counter()
+    payload = {
+        'device': _rank_device(dev), 'mesh_shape': MP_MESH,
+        'agree_pk': (MP_AGREE_P, MP_AGREE_K), 'train_pk': (TRAIN_P, TRAIN_K),
+        'agree_batch': {n: v.numpy() for n, v in train_batch(
+            gallery, MP_AGREE_P, MP_AGREE_K, k_classes, 'cpu').items()},
+        'train_batch': {n: v.numpy() for n, v in train_batch(
+            gallery, TRAIN_P, TRAIN_K, k_classes, 'cpu').items()},
+        'dcp': os.path.join(d, 'mp_train.dcp'),
+        'gathered': os.path.join(d, 'mp_train_gathered.pt')}
+    ranks = _Ranks('mp', 'mp', payload).results()
+    wall = time.perf_counter() - t0
+    agree, train = ranks[0]['agree'], [r['train'] for r in ranks]
+    emit('mp_agree', config=os.path.relpath(DUKE['yaml'], ROOT),
+         mesh=list(MP_MESH), global_batch=MP_AGREE_P * MP_AGREE_K,
+         dtype='float32', backend='gloo', residual_gamma=0.01,
+         loss_rtol=DP_LOSS_RTOL, state_rel=DP_STATE_REL, rel=TRAIN_REL,
+         floor=TRAIN_FLOOR, card=_CARD.get('smi'), **agree)
+    emit('mp_train', config=os.path.relpath(DUKE['yaml'], ROOT),
+         mesh=list(MP_MESH), global_batch=TRAIN_P * TRAIN_K,
+         dtype='bfloat16', steps=MP_TIMED, warmup=MP_WARMUP, ranks=train,
+         wall_s_with_mp_agree=wall, card=_CARD.get('smi'),
+         note='2 ranks share one H100 (each runs the whole batch: a model '
+              'group shares rows): a check that the path works, not a '
+              'scaling figure')
+    return payload['dcp'], payload['gathered']
+
+
+def _mp_net_cfg_args(out_dir):
+    return ['--device', None, '--skip-test', '--cfg', DUKE['yaml'],
+            'TRAIN.WEIGHTS', "''", 'TRAIN.DATASETS', "('duke_mp_trainval',)",
+            'TRAIN.IMS_PER_BATCH', str(MP_NET_P * MP_NET_K),
+            'REID.P', str(MP_NET_P), 'REID.K', str(MP_NET_K),
+            'NUM_GPUS', '2', 'TPU.MESH_SHAPE', str(MP_MESH),
+            'TPU.CKPT_FORMAT', 'orbax', 'SOLVER.MAX_ITER', str(MP_NET_EPOCHS),
+            'TRAIN.SNAPSHOT_ITERS', '1', 'OUTPUT_DIR', out_dir]
+
+
+def phase_ckpt_sharded(dev, out_root, dcp_dir, gathered):
+    """The sharded checkpoint: mp_train's (1, 2) save loaded into this one
+    process, bitwise equal to the gathered state; then ``tools.train_net``
+    on two ranks (1, 2) under TPU.CKPT_FORMAT orbax over a Duke-shaped
+    subset: a continuous run with PPS_TPU_DUMP_JAXPR set (the graph
+    written, its node count above zero) and, beside it, a run whose rank 1
+    gets a SIGTERM once the first .dcp snapshot is on disk (both exit 75
+    after the same step, one model_preempt_*.dcp); then the same command
+    again (auto-resumed from the .dcp): its model_final.pkl bitwise equal
+    to the continuous run's."""
+    import signal
+    import torch
+    from pps_tpu_torch.engine import checkpoint as ckpt
+    from pps_tpu_torch.utils.io import load_object
+    t0 = time.perf_counter()
+    want = torch.load(gathered)
+    tmpl = {part: ({n: (torch.zeros_like(t, device=dev) if torch.is_tensor(t)
+                        else {m: torch.zeros_like(x, device=dev)
+                              for m, x in t.items()})
+                    for n, t in tree.items()})
+            for part, tree in want.items()}
+    t1 = time.perf_counter()
+    got = ckpt.load_checkpoint_dcp(dcp_dir, tmpl)
+    load_s = time.perf_counter() - t1
+    n_tensors = 0
+    for part, tree in want.items():
+        for n, t in tree.items():
+            pairs = ([(t, got[part][n])] if torch.is_tensor(t) else
+                     [(x, got[part][n][m]) for m, x in t.items()])
+            for w, g in pairs:
+                n_tensors += 1
+                if g.device.type != torch.device(dev).type or \
+                        not torch.equal(g.cpu(), w):
+                    raise AssertionError('dcp load: {}/{} on {}'.format(
+                        part, n, g.device))
+    dcp_mb = sum(os.path.getsize(os.path.join(dcp_dir, f))
+                 for f in os.listdir(dcp_dir)) / 1e6
+    shutil.rmtree(os.path.dirname(dcp_dir), ignore_errors=True)
+
+    # tools.train_net on (1, 2) under TPU.CKPT_FORMAT orbax
+    spec = dict(DUKE, train_ids=MP_NET_IDS, train_per_id=MP_NET_PER_ID)
+    decode = MixedDecoder(size_table(DUKE), seed=DUKE['seed'])
+    from pps_tpu_torch.data import catalog
+    root = os.path.join(out_root, 'duke_mp')
+    write_reid(root, 'duke_mp',
+               [(pid, j % spec['cams'] + 1, None)
+                for pid in range(1, MP_NET_IDS + 1)
+                for j in range(MP_NET_PER_ID)], [], size_of=decode.size_of)
+    data = {'duke_mp_trainval': (catalog.get_im_dir('duke_mp_trainval'),
+                                 catalog.get_ann_fn('duke_mp_trainval'))}
+    card = _rank_device(dev)
+
+    def payload(out_dir):
+        argv = _mp_net_cfg_args(out_dir)
+        argv[1] = card
+        return {'datasets': data, 'decoder': 'duke', 'argv': argv}
+
+    # the continuous run and the run to preempt side by side (four ranks
+    # on the card: their start-up overlaps)
+    cont_dir = os.path.join(out_root, 'mp_cont')
+    cont_ranks = _Ranks('ckpt_sharded', 'train_net', payload(cont_dir),
+                        extra_env={'PPS_TPU_DUMP_JAXPR': '1'})
+    pre_dir = os.path.join(out_root, 'mp_pre')
+    pre_train = os.path.join(pre_dir, 'train', 'duke_mp_trainval')
+    ranks = _Ranks('ckpt_sharded_pre', 'train_net', payload(pre_dir))
+    first = os.path.join(pre_train, 'model_epoch1.dcp', '.metadata')
+    try:
+        while not os.path.isfile(first):
+            if any(p.poll() is not None for p in ranks.procs) or \
+                    time.perf_counter() - ranks.t0 > DP_TIMEOUT_S:
+                raise AssertionError('no model_epoch1.dcp before the end')
+            time.sleep(0.05)
+        ranks.procs[1].send_signal(signal.SIGTERM)
+    except BaseException:
+        ranks.kill()
+        cont_ranks.kill()
+        raise
+    cont = cont_ranks.results()
+    train_dir = os.path.join(cont_dir, 'train', 'duke_mp_trainval')
+    graph = os.path.join(train_dir, 'train_step.graph.txt')
+    nodes = [ln for ln in _read(cont_ranks.logs[0])
+             if 'train_step.graph.txt' in ln]
+    n_nodes = int(nodes[0].split('(')[1].split()[0]) if nodes else 0
+    if not os.path.isfile(graph) or n_nodes <= 0:
+        raise AssertionError('graph dump: {} {}'.format(graph, nodes))
+    graph_mb = os.path.getsize(graph) / 1e6
+    cont_names = sorted(os.listdir(train_dir))
+    pre = ranks.results(ok=(75,))
+    steps = [len(r['losses']) for r in pre]
+    preempt = [n for n in os.listdir(pre_train)
+               if n.startswith('model_preempt_') and n.endswith('.dcp')]
+    if len(set(steps)) != 1 or len(preempt) != 1:
+        raise AssertionError('ranks stopped after {}; resume points {}'
+                             .format(steps, preempt))
+    resumed = _Ranks('ckpt_sharded_resume', 'train_net',
+                     payload(pre_dir)).results()
+    n_cont, n_res = len(cont[0]['losses']), len(resumed[0]['losses'])
+    if steps[0] + n_res != n_cont or \
+            resumed[0]['losses'][0] != cont[0]['losses'][steps[0]]:
+        raise AssertionError('{} + {} steps of {}; first resumed loss {} '
+                             'vs {}'.format(steps[0], n_res, n_cont,
+                                            resumed[0]['losses'][0],
+                                            cont[0]['losses'][steps[0]]))
+    got = load_object(os.path.join(pre_train, 'model_final.pkl'))['blobs']
+    ref = load_object(os.path.join(train_dir, 'model_final.pkl'))['blobs']
+    equal = sum(np.array_equal(got[k], ref[k]) for k in ref)
+    if sorted(got) != sorted(ref) or equal != len(ref):
+        raise AssertionError('resumed final: {} of {} blobs bitwise equal'
+                             .format(equal, len(ref)))
+    fc = ref['pps0_fc_w'].shape
+    emit('ckpt_sharded', dcp_load_bitwise=True, dcp_tensors=n_tensors,
+         dcp_mb=dcp_mb, dcp_load_s=load_s, graph_nodes=n_nodes,
+         graph_mb=graph_mb,
+         continuous_checkpoints=cont_names,
+         continuous_steps=len(cont[0]['losses']),
+         preempted_after_steps=steps[0], resume_point=preempt[0],
+         resumed_steps=len(resumed[0]['losses']),
+         final_blobs_bitwise_equal=equal, final_blobs=len(ref),
+         final_fc_shape=list(fc), wall_s=time.perf_counter() - t0,
+         card=_CARD.get('smi'))
 
 
 RET_SHARDS = 4                      # retrieval_sharded: shards on the card
@@ -3797,9 +4340,20 @@ def main():
     from pps_tpu_torch.device import resolve_device
     dev = resolve_device('cuda')
 
-    phase_build()
-    kernels = [phase_kernel(dev), phase_kernel_int8(dev)]
-    gallery = make_gallery()
+    t_start = time.perf_counter()
+    seconds = {}  # each phase's wall clock, for the phase_seconds line
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = round(time.perf_counter() - t0, 1)
+
+    timed('build', phase_build)
+    kernels = [timed('kernel', phase_kernel, dev),
+               timed('kernel_int8', phase_kernel_int8, dev)]
+    gallery = timed('gallery', make_gallery)
 
     # each phase of the main path runs through driven(): the launch counts
     # are zeroed just before it and read just after, per phase and kernel;
@@ -3811,7 +4365,7 @@ def main():
     def driven(name, fn, *args):
         kernels_lib.reset_launch_counts()
         _CHILDREN.clear()
-        out = fn(*args)
+        out = timed(name, fn, *args)
         children = child_launches()
         counts = kernels_lib.launch_counts()
         by_phase[name] = {k: v + sum(c.get(k, 0) for c in children.values())
@@ -3824,26 +4378,28 @@ def main():
     # main path, part 1: extraction and serving
     cfg, model, params, state, feats = driven('extract', phase_extract, dev,
                                               gallery)
-    phase_agree(dev, params, state, gallery)
+    timed('agree', phase_agree, dev, params, state, gallery)
     driven('serve', phase_serve, dev, cfg, model, params, state, gallery,
            feats)
-    phase_profile(dev, model, params, state, gallery, cfg)
+    timed('profile', phase_profile, dev, model, params, state, gallery, cfg)
     del model, params, state, feats
     torch.cuda.empty_cache()
 
     # main path, part 2: the train step
     step, ts, batch, bare_ms = driven('train', phase_train, dev, gallery)
-    phase_profile_train(dev, step, ts, batch)
+    timed('profile_train', phase_profile_train, dev, step, ts, batch)
     del step, ts, batch
     torch.cuda.empty_cache()
-    phase_train_agree(dev, gallery)
+    timed('train_agree', phase_train_agree, dev, gallery)
     torch.cuda.empty_cache()
     # the data-parallel step: two ranks on the card over gloo, one NCCL rank
     driven('dp_agree', phase_dp_agree, dev, gallery)
     driven('dp_train', phase_dp_train, dev, gallery, bare_ms)
-    phase_remat(dev, gallery)
+    # the model axis: two ranks as a (1, 2) mesh, the Duke yaml
+    mp_ckpt = driven('mp_agree_mp_train', phase_mp, dev, gallery)
+    timed('remat', phase_remat, dev, gallery)
     torch.cuda.empty_cache()
-    phase_gn_agree(dev)
+    timed('gn_agree', phase_gn_agree, dev)
     torch.cuda.empty_cache()
 
     # main path, part 3: the train -> test drivers
@@ -3869,6 +4425,8 @@ def main():
     driven('dp_train_net', phase_dp_train_net, dev, out_root)
     driven('dp_test_net', phase_dp_test_net, dev, out_root, market_pkl,
            market_feats)
+    # the sharded checkpoint and the graph dump, on the (1, 2) mesh
+    driven('ckpt_sharded', phase_ckpt_sharded, dev, out_root, *mp_ckpt)
 
     # main path, part 3b: the model variants on the same synthetic Market
     # set: FPN through the drivers, BN folding, int8, the export tool
@@ -3893,7 +4451,7 @@ def main():
         write_mixed(os.path.join(out_root, spec['name']), spec,
                     decoders[spec['name']])
     duke, cuhk = decoders['duke'], decoders['cuhk03']
-    phase_augment_agree(dev, duke)
+    timed('augment_agree', phase_augment_agree, dev, duke)
     duke_rec, duke_pkl = driven('train_duke', phase_train_mixed, dev,
                                 out_root, DUKE, duke, DUKE_EPOCHS,
                                 'train_duke')
@@ -3939,6 +4497,9 @@ def main():
         if k['on_main_path'] and k['launches'] == 0:
             raise AssertionError('{} never launched on the main path'.format(
                 k['name']))
+    timed('numpy_checks', settle_numpy_checks)  # the deferred gates
+    seconds['total'] = round(time.perf_counter() - t_start, 1)
+    print(json.dumps({'phase_seconds': seconds}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({'ok': True, 'device': {

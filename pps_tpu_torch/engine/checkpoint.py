@@ -18,8 +18,17 @@ A ConvGN head carries ``{combo_prefix}_gn_s/_b`` and no running stats.
 int8 HWIO ``*_wq`` of a quantized body), and optionally its optimizer
 state, and places them on the model's device; the tests carry identical
 weights across with it.  ``*_momentum`` blobs
-are written from and read into ``opt_state['momentum']``.  Orbax and
-multi-host saving are not ported.
+are written from and read into ``opt_state['momentum']``.
+
+The sharded format (``TPU.CKPT_FORMAT: orbax``; the counterpart of
+pps_tpu's orbax backend) is a ``torch.distributed.checkpoint`` directory
+``*.dcp`` of the native tree ``{'params', 'state', 'opt'}``: each rank
+writes its own shards, a class-sharded tensor carries its placement (a
+DTensor over a CPU device mesh of the ranks), and a load re-shards onto
+the template's placements (``save_checkpoint_dcp``,
+``load_checkpoint_dcp``, ``wait_for_dcp``).  pps_tpu's ``.orbax``
+directories need orbax's storage layer, which the port does not import:
+given one, the port raises; pkl is the format both packages read.
 """
 
 import logging
@@ -276,8 +285,183 @@ def load_checkpoint(path, model, params, state, opt_state=None):
     return params, state, opt_state
 
 
-_EPOCH_RE = re.compile(r'^model_epoch(\d+)\.(pkl|orbax)$')
-_PREEMPT_RE = re.compile(r'^model_preempt_epoch(\d+)_step(\d+)\.(pkl|orbax)$')
+# ---------------------------------------------------------------------------
+# the sharded format: torch.distributed.checkpoint directories (*.dcp)
+# ---------------------------------------------------------------------------
+
+ORBAX_REFUSED = ('{}: an orbax directory of the JAX package; the port reads '
+                 'no orbax storage (it imports torch and numpy only). pkl is '
+                 'the format both packages read: write one with '
+                 "TPU.CKPT_FORMAT pkl (or the JAX package's save_checkpoint)")
+
+# the background writer: one save in flight at a time
+_DCP = {'pool': None, 'fut': None}
+_DEVICE_MESHES = {}
+
+
+def check_not_orbax(path):
+    """Raise for a pps_tpu ``.orbax`` directory (the port cannot read it)."""
+    if path and str(path).rstrip('/').endswith('.orbax'):
+        raise ValueError(ORBAX_REFUSED.format(path))
+
+
+def is_dcp(path):
+    return bool(path) and str(path).rstrip('/').endswith('.dcp')
+
+
+def _device_mesh(mesh):
+    """A CPU ``DeviceMesh`` over the (data, model) grid of the process
+    group's ranks, once per grid shape (its creation is collective: every
+    rank calls it, on the main thread).  CPU: the state is staged to host
+    memory before a save, so no CUDA mesh (which would ask for NCCL
+    between ranks that share one card) is made."""
+    key = (mesh.n_data, mesh.n_model)
+    if key not in _DEVICE_MESHES:
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        kw = {}
+        if dist.get_backend() != 'gloo':
+            kw['backend_override'] = {'data': 'gloo', 'model': 'gloo'}
+        _DEVICE_MESHES[key] = init_device_mesh(
+            'cpu', key, mesh_dim_names=('data', 'model'), **kw)
+    return _DEVICE_MESHES[key]
+
+
+def _dcp_group(mesh):
+    """A gloo group of every rank for the background writer's own
+    collectives (created once, on the main thread, by every rank), so
+    they never interleave with the train step's on the same group."""
+    key = ('dcp_group', mesh.world_size)
+    if key not in _DEVICE_MESHES:
+        import torch.distributed as dist
+        _DEVICE_MESHES[key] = dist.new_group(backend='gloo')
+    return _DEVICE_MESHES[key]
+
+
+def _distributed(mesh):
+    return mesh is not None and mesh.distributed
+
+
+def _dcp_tree(train_state, mesh, num_logits):
+    """``{'params', 'state', 'opt'}`` of host tensors (copies, so the
+    caller's tensors may change at once); under a model axis each class
+    slice is a DTensor ``[Replicate(), Shard(-1)]`` over the CPU device
+    mesh.  ``num_logits``: the model's class count (which params are
+    slices)."""
+    from pps_tpu_torch.parallel import mesh as mesh_lib
+    sharded = ()
+    if _distributed(mesh) and mesh.n_model > 1:
+        sharded = mesh_lib.placed_class_names(mesh, train_state['params'],
+                                              num_logits)
+    if sharded:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        dmesh = _device_mesh(mesh)
+
+    def host(name, t):
+        t = t.detach().to('cpu', copy=True)
+        if name in sharded:
+            return DTensor.from_local(t, dmesh,
+                                      [Replicate(), Shard(t.dim() - 1)],
+                                      run_check=False)
+        return t
+
+    out = {}
+    for part in ('params', 'state', 'opt'):
+        if part not in train_state:
+            continue
+        tree = {}
+        for k, v in train_state[part].items():
+            if isinstance(v, dict):
+                tree[k] = {n: host(n, t) for n, t in v.items()}
+            else:
+                tree[k] = host(k, v)
+        out[part] = tree
+    return out
+
+
+def wait_for_dcp():
+    """Block until an in-flight sharded save has committed (its errors
+    raise here)."""
+    fut, _DCP['fut'] = _DCP['fut'], None
+    if fut is not None:
+        fut.result()
+
+
+def save_checkpoint_dcp(path, train_state, cfg=None, mesh=None,
+                        num_logits=None, block=False):
+    """Write ``{'params', 'state', 'opt'}`` to the directory ``path``
+    (``*.dcp``) with ``torch.distributed.checkpoint``.
+
+    Under a distributed ``mesh`` every rank calls this together (from the
+    main thread): each writes its own shards, the class slices of a model
+    axis as DTensors (``num_logits``: the model's class count), and rank 0
+    writes the ``path + '.cfg.yaml'`` sidecar.  The state is staged to
+    host memory here; the write runs in a background thread (one save in
+    flight: this waits for the last), unless ``block``.  Call
+    ``wait_for_dcp`` before reading the directory."""
+    import torch.distributed.checkpoint as dcp
+    from concurrent.futures import ThreadPoolExecutor
+    wait_for_dcp()
+    dist = _distributed(mesh)
+    tree = _dcp_tree(train_state, mesh, num_logits)
+    group = _dcp_group(mesh) if dist else None
+    path = os.path.abspath(path)
+    if cfg is not None and (not dist or mesh.rank == 0):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path + '.cfg.yaml', 'w') as f:
+            f.write(dump_cfg(cfg))
+
+    def write():
+        dcp.save(tree, checkpoint_id=path, process_group=group,
+                 no_dist=not dist)
+        logger.info('Wrote sharded checkpoint: %s', path)
+    if block:
+        return write()
+    if _DCP['pool'] is None:
+        _DCP['pool'] = ThreadPoolExecutor(1)
+    _DCP['fut'] = _DCP['pool'].submit(write)
+    logger.info('Writing sharded checkpoint: %s (async)', path)
+
+
+def load_checkpoint_dcp(path, train_state, mesh=None, num_logits=None):
+    """Load a ``*.dcp`` directory into the structure of ``train_state``
+    (a template: any of 'params', 'state', 'opt'; its values set the
+    shapes, dtypes, devices and placements).  The load re-shards onto the
+    template's placements: a template of whole tensors reads whole
+    tensors (in one process, or on every rank), one whose class-sharded
+    params are this rank's slices on a model axis (``num_logits`` as for
+    the save) reads those slices, whatever grid wrote the directory.
+    Every rank reads on its own (no collective).  Returns a new tree of
+    tensors on the template's devices."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+    check_not_orbax(path)
+    wait_for_dcp()
+    if not os.path.isfile(os.path.join(path, '.metadata')):
+        raise FileNotFoundError('{}: no sharded checkpoint (no .metadata: '
+                                'never written, or the write did not '
+                                'finish)'.format(path))
+    tree = _dcp_tree(train_state, mesh, num_logits)
+    dcp.load(tree, checkpoint_id=os.path.abspath(path), no_dist=True)
+
+    def back(t, like):
+        if isinstance(t, DTensor):
+            t = t.to_local()
+        return t.to(like.device)
+    out = {}
+    for part, v in tree.items():
+        out[part] = {}
+        for k, x in v.items():
+            tmpl = train_state[part][k]
+            out[part][k] = ({n: back(t, tmpl[n]) for n, t in x.items()}
+                            if isinstance(x, dict) else back(x, tmpl))
+    logger.info('Restored sharded checkpoint: %s', path)
+    return out
+
+
+_EPOCH_RE = re.compile(r'^model_epoch(\d+)\.(pkl|orbax|dcp)$')
+_PREEMPT_RE = re.compile(
+    r'^model_preempt_epoch(\d+)_step(\d+)\.(pkl|orbax|dcp)$')
 
 
 def find_resume_checkpoint(output_dir):
@@ -288,7 +472,8 @@ def find_resume_checkpoint(output_dir):
     order is the resume-position order.  ``model_final.pkl`` wins with
     epoch -1: training is complete.  ``.orbax`` names are matched as the
     JAX package does, so such a directory is found (and then refused by
-    the loader: orbax is not ported)."""
+    the loader: the port reads no orbax storage); a ``.dcp`` directory
+    counts once its write finished (its ``.metadata`` is there)."""
     final = os.path.join(output_dir, 'model_final.pkl')
     if os.path.exists(final):
         return final, -1, 0
@@ -301,6 +486,10 @@ def find_resume_checkpoint(output_dir):
                 m = _PREEMPT_RE.match(f)
                 if m:
                     key = (int(m.group(1)), int(m.group(2)))
+            if key is not None and f.endswith('.dcp') and \
+                    not os.path.isfile(os.path.join(output_dir, f,
+                                                    '.metadata')):
+                key = None
             if key is not None and key > best[1:]:
                 best = (os.path.join(output_dir, f),) + key
     return best

@@ -25,7 +25,10 @@ Over a data mesh (a process group, one rank per card) every rank runs
 the features, evaluates them and writes ``features.pkl``, and the other
 ranks return.  ``TPU.INT8_EVAL`` calibrates alike on every rank.
 
-Not ported: orbax weights (ROADMAP slice 9); they raise.
+Weights are a pkl or a ``.dcp`` directory of the port's sharded format
+(``engine/checkpoint.py``); under a model axis extraction folds it into
+data, as pps_tpu's ``batch_sharding(fold_model=True)`` does.  pps_tpu's
+``.orbax`` directories raise: pkl is the format both packages read.
 """
 
 import collections
@@ -153,7 +156,8 @@ def stream_extract(cfg, model, params, state, roidb, batch_size,
         idx = list(range(start, min(start + batch_size, len(roidb))))
         idx += idx[-1:] * (batch_size - len(idx))
         if mesh is not None and mesh.distributed:
-            idx = idx[slice(*mesh_lib.local_rows(mesh, batch_size))]
+            idx = idx[slice(*mesh_lib.local_rows(mesh, batch_size,
+                                                 fold_model=True))]
         ims = [decode_fn(roidb[j]['image']) for j in idx]
         if pad_hw is not None and fits_bucket(ims, pad_hw):
             return 'u8p', pad_to_bucket(ims, pad_hw)
@@ -285,15 +289,17 @@ def test_net(cfg, weights_file, dataset_name, output_dir=None,
     """Extract the features of a test dataset; write features.pkl to
     ``output_dir`` (rank 0 alone under a distributed ``mesh``, whose
     device is the model's).  Returns (features, roidb)."""
-    if weights_file and str(weights_file).endswith('.orbax'):
-        raise NotImplementedError(
-            'orbax weights are not ported (ROADMAP slice 9: sharded '
-            'checkpoints)')
+    ckpt_lib.check_not_orbax(weights_file)
     if mesh is not None:
         device = mesh.device
     model = build_model(cfg, device=device)
     params, state = model.init(torch.Generator().manual_seed(cfg.RNG_SEED))
-    if weights_file:
+    if ckpt_lib.is_dcp(weights_file):
+        # the whole params and BN state, read on every rank
+        ts = ckpt_lib.load_checkpoint_dcp(weights_file, {'params': params,
+                                                         'state': state})
+        params, state = ts['params'], ts['state']
+    elif weights_file:
         params, state, _ = ckpt_lib.load_checkpoint(weights_file, model,
                                                     params, state)
     roidb = roidb_for_test(dataset_name)
@@ -358,9 +364,9 @@ def run_inference(cfg, weights_file=None, output_dir=None, decode_fn=None,
     Under a process group every rank calls it (``device`` is the rank's
     own); rank 0 evaluates and returns the results, the others {}."""
     weights_file = weights_file or cfg.TEST.WEIGHTS
+    # extraction folds a model axis into data (pps_tpu's
+    # batch_sharding(fold_model=True)): every rank embeds its own rows
     mesh = mesh_lib.build_mesh(cfg, device=device)
-    # a model axis above 1 raises (ROADMAP slice 9)
-    mesh_lib.check_data_only(mesh)
     device = mesh.device
     from pps_tpu_torch.config import get_output_dir
     results = {}

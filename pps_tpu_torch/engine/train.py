@@ -1,6 +1,6 @@
 """Training driver: epoch loop, LR feed, checkpoints, auto-resume and
 preemption (counterpart of ``pps_tpu/engine/train.py``), on one device or
-over a data mesh of one process per card.
+over a (data, model) mesh of one process per card.
 
 One ``make_train_step`` call per iteration; the TRIPLET_LOSS_CROSS
 alternation comes from the pure ``EpochSchedule``; the momentum is
@@ -30,8 +30,23 @@ lines.
   group of host tensors, with no device sync), with one
   ``model_preempt_*.pkl``.  The ranks pass a store barrier between
   building and the first step.
-* Not ported: orbax checkpoints (``TPU.CKPT_FORMAT: orbax``), the model
-  axis, and the jaxpr dump (ROADMAP slice 9).
+* A model axis (``TPU.MESH_SHAPE (n, m)``, ``m > 1``): the ranks of a
+  model group share rows and split the classifier FCs' classes
+  (``parallel/train_step.py``); a pkl is written from the class slices
+  gathered over the model group on the main thread, before the
+  background writer takes them.
+* ``TPU.CKPT_FORMAT: orbax`` writes the epoch snapshots and the
+  preemption checkpoint in the port's sharded format instead
+  (``model_epoch{N}.dcp``, ``model_preempt_epoch{E}_step{S}.dcp``:
+  ``torch.distributed.checkpoint``, every rank its own shards, one save
+  in flight); ``model_final.pkl`` is always a pkl.  Auto-resume reads
+  either format, on any grid.
+* ``PPS_TPU_DUMP_JAXPR`` set: ``train_step.graph.txt`` in the output
+  directory, the abstract trace of the one-device step at the global
+  batch (``make_fx`` on fake tensors: nothing runs on the device, no
+  sampler state is consumed, the parameters stay as they were), the
+  counterpart of pps_tpu's ``train_step.jaxpr.txt``; its node count is
+  logged.
 """
 
 import logging
@@ -56,9 +71,6 @@ from pps_tpu_torch.solver import lr_policy
 from pps_tpu_torch.solver import optimizer as opt_lib
 
 logger = logging.getLogger(__name__)
-
-_MULTI_TODO = ('{} is not ported yet (ROADMAP slice 9: the model axis, '
-               'sharded checkpoints and the graph dump)')
 
 # SIGTERM (maintenance events, spot capacity) sets this flag; the loop
 # checkpoints after the in-flight step and raises `Preempted`, so a
@@ -111,13 +123,20 @@ def create_model(cfg, output_dir, device=None):
     if cfg.TRAIN.AUTO_RESUME:
         path, epoch, step = ckpt_lib.find_resume_checkpoint(output_dir)
         if path is not None:
-            if path.endswith('.orbax'):
-                raise NotImplementedError(_MULTI_TODO.format(
-                    'Resuming from an orbax checkpoint ({})'.format(path)))
+            ckpt_lib.check_not_orbax(path)
             logger.info('Auto-resuming from %s (epoch %d, step %d)',
                         path, epoch, step)
-            params, state, opt_state = ckpt_lib.load_checkpoint(
-                path, model, params, state, opt_state=opt_state)
+            if ckpt_lib.is_dcp(path):
+                # whole tensors on every rank (each reads on its own);
+                # place_train_state then slices a model axis's classes
+                ts = ckpt_lib.load_checkpoint_dcp(
+                    path, {'params': params, 'state': state,
+                           'opt': opt_state})
+                params, state, opt_state = ts['params'], ts['state'], \
+                    ts['opt']
+            else:
+                params, state, opt_state = ckpt_lib.load_checkpoint(
+                    path, model, params, state, opt_state=opt_state)
             start_epoch, start_step = epoch, step
     if start_epoch == 0 and start_step == 0 and cfg.TRAIN.WEIGHTS:
         logger.info('Bootstrapping weights from %s', cfg.TRAIN.WEIGHTS)
@@ -126,17 +145,40 @@ def create_model(cfg, output_dir, device=None):
     return model, params, state, opt_state, start_epoch, start_step, False
 
 
-def _check_ported(cfg):
-    if int(cfg.TPU.MESH_SHAPE[1]) > 1:
-        raise NotImplementedError(_MULTI_TODO.format(
-            'A model axis above 1 (TPU.MESH_SHAPE {})'.format(
-                tuple(cfg.TPU.MESH_SHAPE))))
-    if cfg.TPU.CKPT_FORMAT != 'pkl':
-        raise NotImplementedError(_MULTI_TODO.format(
-            'TPU.CKPT_FORMAT {}'.format(cfg.TPU.CKPT_FORMAT)))
-    if os.environ.get('PPS_TPU_DUMP_JAXPR'):
-        raise NotImplementedError(_MULTI_TODO.format(
-            'The jaxpr dump (PPS_TPU_DUMP_JAXPR)'))
+def dump_train_graph(model, cfg, meta, trainable, global_batch,
+                     train_state, output_dir):
+    """Write ``train_step.graph.txt`` to ``output_dir``: the one-device
+    train step at the global batch (float32 ``data``, ``labels_int32``,
+    ``labels_oh``, the dropout mask an input), traced with ``make_fx`` on
+    fake tensors, so nothing runs on the device and the real parameters
+    are only read for their metadata.  Returns the graph's node count."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    step = ts_lib.make_train_step(model, cfg, meta, trainable=trainable,
+                                  device=model.device)
+    w, h = cfg.REID.SCALE
+    dev = model.device
+    levels = 1 if model.fpn_spec is None else model.fpn_spec['fpn_num']
+    batch = {'data': torch.empty((global_batch, h, w, 3), device=dev),
+             'labels_int32': torch.zeros((global_batch,), dtype=torch.int32,
+                                         device=dev),
+             'labels_oh': torch.empty((global_batch,
+                                       model.head_spec['num_logits']),
+                                      device=dev)}
+    mask = torch.empty((levels * global_batch, model.num_combos,
+                        model.head_spec['bpm_dim']), dtype=torch.bool,
+                       device=dev)
+
+    def traced(ts, b, m):
+        return step(ts, b, 0.01, 1.0, None, draws={'dropout_mask': m})
+    # the model's own constants (the combo masks) enter as fake too
+    graph = make_fx(traced, tracing_mode='fake',
+                    _allow_non_fake_inputs=True)(train_state, batch, mask)
+    path = os.path.join(output_dir, 'train_step.graph.txt')
+    with open(path, 'w') as f:
+        f.write(graph.print_readable(print_output=False))
+    nodes = len(graph.graph.nodes)
+    logger.info('wrote train_step.graph.txt (%d nodes)', nodes)
+    return nodes
 
 
 def _fetch_async(train_state, device):
@@ -187,7 +229,6 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
     global batch is ``TRAIN.IMS_PER_BATCH x NUM_GPUS`` split over the
     ranks.
     """
-    _check_ported(cfg)
     mesh = mesh_lib.build_mesh(cfg, device=device)
     device = mesh.device
     chief = mesh.rank == 0
@@ -223,8 +264,20 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
     sched = loader.schedule
     stats = TrainingStats(sched.total_steps(), log_period=log_period,
                           device=device, emit=chief)
+    if os.environ.get('PPS_TPU_DUMP_JAXPR') and chief:
+        # the reference's net.pbtxt analog: the one-device step's graph
+        dump_train_graph(model, cfg, meta, trainable, sched.global_batch,
+                         {'params': params, 'state': state,
+                          'opt': opt_state}, output_dir)
     train_state = ts_lib.place_train_state(
         mesh, {'params': params, 'state': state, 'opt': opt_state})
+    num_logits = model.head_spec['num_logits']
+    sharded_ckpt = cfg.TPU.CKPT_FORMAT == 'orbax'
+
+    def whole(ts):
+        # a model axis's class slices put together (every rank, main
+        # thread): what a pkl holds
+        return ts_lib.gather_train_state(mesh, ts, num_logits)
     generator = torch.Generator(device=device)
     base_seed = cfg.RNG_SEED + 1
     global_step = sched.steps_before_epoch(start_epoch) + resume_step
@@ -326,13 +379,19 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
                         saver_fut = None
                     done_steps = i + 1
                     ppath = os.path.join(
-                        output_dir, 'model_preempt_epoch{}_step{}.pkl'.format(
-                            ep, done_steps))
-                    if chief:
-                        ckpt_lib.save_checkpoint(
-                            ppath, model, train_state['params'],
-                            train_state['state'],
-                            opt_state=train_state['opt'], cfg=cfg)
+                        output_dir, 'model_preempt_epoch{}_step{}.{}'.format(
+                            ep, done_steps, 'dcp' if sharded_ckpt else 'pkl'))
+                    if sharded_ckpt:
+                        ckpt_lib.save_checkpoint_dcp(
+                            ppath, train_state, cfg=cfg, mesh=mesh,
+                            num_logits=num_logits, block=True)
+                    else:
+                        full = whole(train_state)
+                        if chief:
+                            ckpt_lib.save_checkpoint(
+                                ppath, model, full['params'],
+                                full['state'], opt_state=full['opt'],
+                                cfg=cfg)
                     # no rank exits before the resume point is on disk
                     mesh_lib.coordination_barrier('train_model/preempt')
                     logger.info('preemption requested: wrote %s (epoch '
@@ -342,12 +401,19 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
 
             # per-epoch snapshot; the shortened triplet epochs get none
             if ep % snapshot_period == 0 and not sched.is_triplet_epoch(ep):
-                path = os.path.join(output_dir,
-                                    'model_epoch{}.pkl'.format(ep + 1))
+                path = os.path.join(output_dir, 'model_epoch{}.{}'.format(
+                    ep + 1, 'dcp' if sharded_ckpt else 'pkl'))
                 checkpoints[ep] = path
+                if sharded_ckpt:
+                    # staged to host here, written in the background
+                    ckpt_lib.save_checkpoint_dcp(path, train_state, cfg=cfg,
+                                                 mesh=mesh,
+                                                 num_logits=num_logits)
+                    continue
+                full = whole(train_state)
                 if not chief:
                     continue
-                host, copied = _fetch_async(train_state, device)
+                host, copied = _fetch_async(full, device)
                 if saver_fut is not None:
                     saver_fut.result()  # surface errors; one in flight
                 saver_fut = saver.submit(write_snapshot, path, host, copied)
@@ -369,6 +435,7 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
         try:
             if saver_fut is not None:
                 saver_fut.result()
+            ckpt_lib.wait_for_dcp()
         except Exception:
             if not unwinding:
                 raise
@@ -378,10 +445,11 @@ def train_model(cfg, output_dir=None, roidb=None, decode_fn=None,
 
     # model_final.pkl is also the training-complete marker of auto-resume
     final_path = os.path.join(output_dir, 'model_final.pkl')
+    full = whole(train_state)
     if chief:
-        ckpt_lib.save_checkpoint(final_path, model, train_state['params'],
-                                 train_state['state'],
-                                 opt_state=train_state['opt'], cfg=cfg)
+        ckpt_lib.save_checkpoint(final_path, model, full['params'],
+                                 full['state'], opt_state=full['opt'],
+                                 cfg=cfg)
     mesh_lib.coordination_barrier('train_model/final')
     checkpoints['final'] = final_path
     return checkpoints

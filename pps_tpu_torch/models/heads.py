@@ -24,6 +24,7 @@ import torch
 
 from pps_tpu_torch.models.resnet import (BN_EPSILON, batch_stats,
                                          get_group_gn, running_update)
+from pps_tpu_torch.parallel import collectives
 
 DROPOUT = 0.2  # reference reid_heads.py:81-90 (REID.DROPOUT_FEATURE)
 
@@ -223,6 +224,8 @@ def apply_head(params, state, combo_feats, spec, train=False,
         ``spec['dropout']``) before the classifier.
       dropout_mask: optional [B, R, D] bool keep-mask; else it is drawn
         from ``generator`` (keep with probability 1 - rate).
+    The FC runs on whatever class slice ``{p}_fc_w`` holds: under a model
+    axis, this rank's [R, D, K/m], and the logits are that slice.
     Returns:
       eval: (features [B, R, D] post-ReLU, logits [B, R, K]);
       train: (features, logits, updates) with the new ``{p}_bn_rm/_riv``.
@@ -286,18 +289,27 @@ def test_embedding(features, normalize=True):
 # ---------------------------------------------------------------------------
 
 
-def apply_crm(params, features, param_prefix='crm'):
+def apply_crm(params, features, param_prefix='crm', sharded=False):
     """Two-branch soft attention over combinations.
 
     features: [B, R, D] pre-dropout post-ReLU combo features.
     Returns probs [B, K]: softmax over classes (axis 2) times softmax over
-    combos (axis 1), summed over combos.
+    combos (axis 1), summed over combos.  ``sharded``: the fc8 weights are
+    this rank's class slice (the active mesh's model group); the softmax
+    over classes takes its max and its sum over the group, the softmax
+    over combos stays local, and probs is this rank's slice [B, K/m].
     """
     p = param_prefix
     fc8c = torch.matmul(features, params[p + '_fc8c_w']) + \
         params[p + '_fc8c_b']
     fc8d = torch.matmul(features, params[p + '_fc8d_w']) + \
         params[p + '_fc8d_b']
-    alpha_cls = torch.softmax(fc8c, dim=2)
+    if sharded:
+        e = torch.exp(fc8c - collectives.max_model(
+            fc8c.amax(dim=2, keepdim=True)))
+        alpha_cls = e / collectives.all_reduce(
+            torch.sum(e, dim=2, keepdim=True), axis='model')
+    else:
+        alpha_cls = torch.softmax(fc8c, dim=2)
     alpha_det = torch.softmax(fc8d, dim=1)
     return torch.sum(alpha_cls * alpha_det, dim=1)

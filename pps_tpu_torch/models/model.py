@@ -199,10 +199,14 @@ class ReIDModel:
         term under REID.TRIPLET_LOSS_CROSS.  The log keys are the JAX
         package's; each value is a 0-d tensor.
 
-        Under an active data mesh (``parallel/collectives.data_parallel``)
-        ``batch`` is this rank's rows, the returned loss is this rank's
-        share of the global-batch loss (their sum over ranks is the
-        global loss) and every log is the global value.
+        Under an active mesh (``parallel/collectives.data_parallel``)
+        ``batch`` is the rows of this rank's data slot, the returned loss is
+        this rank's share of the global-batch loss (their sum over ranks is
+        the global loss) and every log is the global value.  Under a model
+        axis the classifier FCs in ``params`` may be this rank's class
+        slices (``parallel/mesh.param_shardings``); the CE and the CRM then
+        reduce over the model group, and ``labels_oh`` may be the full
+        one-hot or this rank's class slice of it.
         """
         features, logits, updates = self._features(
             params, state, batch['data'], train=True,
@@ -214,13 +218,18 @@ class ReIDModel:
             n = self.fpn_spec['fpn_num']
             labels = labels.repeat(n)
             labels_oh = labels_oh.repeat(n, 1)
-        # under a data mesh each rank's loss is its share of the global
-        # batch's: per-sample sums over the global count, and the triplet
-        # term (computed in full on every rank over the gathered features)
-        # over the world size
-        world = collectives.world_size()
-        denom = None if world == 1 else labels.shape[0] * world
-        ce, acc = loss_lib.softmax_ce_losses(logits, labels, denom)
+        # under a mesh each rank's loss is its share of the global batch's
+        # (parallel/collectives.py, the rule): per-sample sums over the
+        # global count (the data group's rows), every term a model group
+        # computes alike over n_model, and the triplet term (computed in
+        # full on every rank over the features gathered over the data
+        # group) over the world size
+        n_data, n_model = collectives.data_size(), collectives.model_size()
+        denom = None if n_data == 1 else labels.shape[0] * n_data
+        fc_sharded = (params[self.head_param_prefix + '_fc_w'].shape[-1]
+                      < self.head_spec['num_logits'])
+        ce, acc = loss_lib.softmax_ce_losses(logits, labels, denom,
+                                             sharded=fc_sharded)
         total = torch.sum(ce)
         logs = {'accuracy_cls': torch.mean(acc)}
         # per-combo logs in reference blob naming ({prefix}_loss/_accuracy)
@@ -230,11 +239,19 @@ class ReIDModel:
             logs[prefix + '_accuracy'] = acc[r]
 
         if self.use_crm:
-            probs = head_lib.apply_crm(params, features)
-            crm, crm_acc = loss_lib.crm_loss(probs, labels_oh, labels, denom)
+            crm_sharded = (params['crm_fc8c_w'].shape[-1]
+                           < self.head_spec['num_logits'])
+            if crm_sharded:
+                labels_oh = self._class_slice(labels_oh,
+                                              params['crm_fc8c_w'])
+            probs = head_lib.apply_crm(params, features, sharded=crm_sharded)
+            crm, crm_acc = loss_lib.crm_loss(probs, labels_oh, labels, denom,
+                                             sharded=crm_sharded)
             total = total + crm
             logs['crm_loss'] = crm
             logs['crm_accuracy'] = crm_acc
+        if n_model > 1:
+            total = total / n_model
 
         global_logs = {}
         if self.use_triplet:
@@ -244,21 +261,35 @@ class ReIDModel:
                 normalize=self.normalize_feature)
             tri = (mrc * loss_scale_factor if self.cfg.REID.TRIPLET_LOSS_CROSS
                    else mrc)
-            total = total + loss_lib.TRIPLET_WEIGHT * torch.sum(tri) / world
+            total = total + loss_lib.TRIPLET_WEIGHT * torch.sum(tri) / (
+                n_data * n_model)
             for r, (prefix, _) in enumerate(combos):
                 global_logs[prefix + '_triplet_loss'] = tri[r]
                 global_logs[prefix + '_dist_ap_mean'] = ap_mean[r]
                 global_logs[prefix + '_dist_an_mean'] = an_mean[r]
 
         logs['loss'] = total
-        if world > 1:
-            # the shares summed: one collective for every log
+        if n_data * n_model > 1:
+            # the shares summed over every rank (the class terms' 1/n_model
+            # undone first, so each log is the global value): one
+            # collective for every log
             keys = list(logs)
             vals = collectives.all_reduce(torch.stack(
-                [logs[k].detach().reshape(()) for k in keys]))
+                [logs[k].detach().reshape(()) * (1 if k == 'loss' else
+                                                 1.0 / n_model)
+                 for k in keys]), axis='world')
             logs = dict(zip(keys, vals.unbind(0)))
         logs.update(global_logs)
         return total, (updates, logs)
+
+    def _class_slice(self, labels_oh, w):
+        """This rank's class slice of a full one-hot [B, K]; a slice
+        already (``parallel/train_step.shard_batch``) passes as it is."""
+        k_local = w.shape[-1]
+        if labels_oh.shape[-1] == k_local:
+            return labels_oh
+        lo = collectives.active().model_index * k_local
+        return labels_oh[:, lo:lo + k_local]
 
 
 def build_model(cfg, device=None):

@@ -204,8 +204,9 @@ def batch_stats(xf, dims):
 
     Under an active data mesh (``parallel/collectives.data_parallel``) the
     statistics are those of the GLOBAL batch, as in pps_tpu's step: one
-    differentiable all-reduce of ``[sum x, sum x^2, count]``."""
-    if collectives.active() is None:
+    differentiable all-reduce of ``[sum x, sum x^2, count]`` over the data
+    group (a model group's ranks hold the same rows)."""
+    if collectives.data_size() == 1:
         mean = torch.mean(xf, dim=dims)
         var = torch.clamp(torch.mean(xf * xf, dim=dims) - mean * mean,
                           min=0.0)

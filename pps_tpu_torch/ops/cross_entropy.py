@@ -11,7 +11,9 @@ Despite its name the op consumes *probabilities*:
 The gradient clip is one-sided (upper bound only) and is part of the CRM
 loss's training dynamics, so the backward pass is written out as a
 ``torch.autograd.Function`` (the JAX package's ``custom_vjp``) instead of
-autograd of a clipped log.  Labels get no gradient.
+autograd of a clipped log.  Labels get no gradient.  Under a model axis
+each rank applies it to its class slice and ``models/losses.crm_loss``
+sums the result over the model group: the clip stays elementwise.
 """
 
 import torch

@@ -1,18 +1,45 @@
-"""Differentiable collectives over the data mesh (port-only).
+"""Differentiable collectives over the (data, model) mesh (port-only).
 
 pps_tpu computes the global-batch loss in one program and lets XLA insert
 the cross-device reductions.  The port runs one process per rank, so the
-reductions are explicit, and each has its adjoint as its backward:
+reductions are explicit, each over one group of the mesh
+(``parallel/mesh.py``: the data group splits the rows, the model group
+the classes of the classifier FCs), and each has its adjoint over the
+same group as its backward:
 
 * ``all_reduce`` (sum) <-> ``all_reduce``;
-* ``all_gather`` (rows, rank order) <-> reduce-scatter, built as an
-  all-reduce followed by this rank's slice, so gloo serves it too.
+* ``all_gather`` (rows, group order) <-> reduce-scatter, built as an
+  all-reduce followed by this rank's slice, so gloo serves it too;
+* ``max_model`` (the log-sum-exp shift): no gradient;
+* ``gather_classes`` (class shards for checkpoints and logs): no gradient.
 
-The rule that makes the gradients right: the objective is the SUM over
-ranks of each rank's loss.  A per-sample term divides its local sum by
-the global batch; a term that every rank computes identically (a loss over
-gathered features) is divided by the world size, because the gather's
-backward sums the ranks' cotangents.
+The functions take ``axis`` 'data' (the default), 'model' or 'world'.
+
+THE RULE that makes the gradients right: the objective is the SUM over
+every rank of each rank's loss, and must equal the global loss.  Since
+every backward is its collective's exact adjoint, the sum over ranks of
+each rank's gradient is the gradient of that objective.  So:
+
+* a per-sample term divides its local sum by the global batch (the rows
+  of the data group, ``n_data x`` local rows, never ``world x``);
+* a term that every rank of a model group computes identically counts
+  once: it is divided by ``n_model``.  Such terms are the softmax CE and
+  the CRM loss once their class sums are reduced over the model group
+  (sharded or replicated FCs alike), and the BN statistics (their
+  gradient is linear in what flows back into them);
+* a term that every rank computes identically (the triplet loss over the
+  features gathered over the data group) is divided by ``n_data x
+  n_model``, the world size;
+* gradients of replicated parameters are summed over every rank;
+  gradients of class-sharded parameters (and so their momentum) over the
+  data group only, each model rank holding its own slice.
+
+A class-sharded FC hands each model rank the part of dL/dfeatures that
+its own classes contribute; the body's gradient is their sum over the
+model group, which the all-rank sum of the replicated gradients makes.
+Dropping that share, or counting a class term twice (its ``1/n_model``
+undone), changes the update: ``chip_smoke.class_terms_not_over_model``
+plants the second and the gates refuse it.
 
 ``data_parallel(mesh)`` makes a mesh the active one for the code inside
 (train-mode BN takes its statistics over the global batch, the losses
@@ -53,73 +80,129 @@ def active():
     return _ACTIVE.get()
 
 
-def world_size():
+def _axis(mesh, axis):
+    """(group, size, this rank's index) of ``axis`` on ``mesh``: 'data',
+    'model' or 'world'.  The group is None where it holds one rank."""
+    if axis == 'data':
+        return mesh.data_group, mesh.n_data, mesh.data_index
+    if axis == 'model':
+        return mesh.model_group, mesh.n_model, mesh.model_index
+    if axis == 'world':
+        return mesh.group, mesh.world_size, mesh.rank
+    raise ValueError(axis)
+
+
+def data_size():
+    """The active mesh's data-axis size: the data slots a global batch is
+    split over (1 without one)."""
     mesh = active()
-    return 1 if mesh is None else mesh.world_size
+    return 1 if mesh is None else mesh.n_data
 
 
-def _all_reduce_(t, mesh):
+def model_size():
+    """The active mesh's model-axis size (1 without one)."""
+    mesh = active()
+    return 1 if mesh is None else mesh.n_model
+
+
+def _all_reduce_(t, group, op=None):
     import torch.distributed as dist
-    dist.all_reduce(t, group=mesh.group)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op,
+                    group=group)
     return t
 
 
-def _all_gather(t, mesh):
+def _all_gather(t, group, size, dim=0):
     import torch.distributed as dist
-    parts = [torch.empty_like(t) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, t.contiguous(), group=mesh.group)
-    return torch.cat(parts, dim=0)
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
 
 
 class _AllReduce(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return _all_reduce_(x.clone(), mesh)
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_(x.clone(), group)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_(g.contiguous().clone(), ctx.mesh), None
+        return _all_reduce_(g.contiguous().clone(), ctx.group), None
 
 
 class _AllGather(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        ctx.rows = x.shape[0]
-        return _all_gather(x, mesh)
+    def forward(ctx, x, group, size, index):
+        ctx.group, ctx.index, ctx.rows = group, index, x.shape[0]
+        return _all_gather(x, group, size)
 
     @staticmethod
     def backward(ctx, g):
-        # reduce-scatter: the sum over ranks of the cotangent, this
+        # reduce-scatter: the sum over the group of the cotangent, this
         # rank's rows of it
-        g = _all_reduce_(g.contiguous().clone(), ctx.mesh)
-        r, n = ctx.mesh.rank, ctx.rows
-        return g[r * n:(r + 1) * n], None
+        g = _all_reduce_(g.contiguous().clone(), ctx.group)
+        i, n = ctx.index, ctx.rows
+        return g[i * n:(i + 1) * n], None, None, None
 
 
-def all_reduce(x, mesh=None):
-    """Sum of ``x`` over the ranks of ``mesh`` (default: the active one),
-    differentiable; the identity without one."""
+def all_reduce(x, mesh=None, axis='data'):
+    """Sum of ``x`` over ``axis``'s group of ``mesh`` (default: the active
+    mesh), differentiable; the identity without one."""
     mesh = mesh or active()
     if mesh is None:
         return x
+    group, size, _ = _axis(mesh, axis)
+    if size == 1:
+        return x
     if x.requires_grad:
-        return _AllReduce.apply(x, mesh)
-    return _all_reduce_(x.detach().clone(), mesh)
+        return _AllReduce.apply(x, group)
+    return _all_reduce_(x.detach().clone(), group)
 
 
-def all_gather(x, mesh=None):
-    """The ranks' ``x`` concatenated along dim 0 in rank order (equal
+def all_gather(x, mesh=None, axis='data'):
+    """The group's ``x`` concatenated along dim 0 in group order (equal
     shapes on every rank), differentiable; the identity without a mesh."""
     mesh = mesh or active()
     if mesh is None:
         return x
+    group, size, index = _axis(mesh, axis)
+    if size == 1:
+        return x
     if x.requires_grad:
-        return _AllGather.apply(x, mesh)
-    return _all_gather(x.detach(), mesh)
+        return _AllGather.apply(x, group, size, index)
+    return _all_gather(x.detach(), group, size)
+
+
+def _reduce_model(x, op, mesh):
+    import torch.distributed as dist
+    mesh = mesh or active()
+    if mesh is None or mesh.n_model == 1:
+        return x.detach()
+    return _all_reduce_(x.detach().clone(), mesh.model_group,
+                        getattr(dist.ReduceOp, op))
+
+
+def max_model(x, mesh=None):
+    """Elementwise max of ``x`` over the model group, no gradient (the
+    log-sum-exp shift, the argmax's value)."""
+    return _reduce_model(x, 'MAX', mesh)
+
+
+def min_model(x, mesh=None):
+    """Elementwise min of ``x`` over the model group, no gradient (the
+    argmax's lowest index among ties)."""
+    return _reduce_model(x, 'MIN', mesh)
+
+
+def gather_classes(t, mesh):
+    """A class-sharded tensor's slices (its last dim) put together in
+    model order, on every rank of the model group; no gradient."""
+    if mesh is None or mesh.n_model == 1:
+        return t
+    return _all_gather(t.detach(), mesh.model_group, mesh.n_model,
+                       dim=t.dim() - 1)
 
 
 def _flat_(tensors, collective):
@@ -138,10 +221,14 @@ def _flat_(tensors, collective):
     return tensors
 
 
-def all_reduce_flat_(tensors, mesh):
-    """Sum each tensor over the ranks in place, as ONE flat buffer per
-    dtype (one collective for the whole gradient)."""
-    return _flat_(tensors, lambda flat: _all_reduce_(flat, mesh))
+def all_reduce_flat_(tensors, mesh, axis='world'):
+    """Sum each tensor over ``axis``'s group in place (default every
+    rank), as ONE flat buffer per dtype (one collective per group for the
+    whole gradient)."""
+    group, size, _ = _axis(mesh, axis)
+    if size == 1 or not tensors:
+        return tensors
+    return _flat_(tensors, lambda flat: _all_reduce_(flat, group))
 
 
 def broadcast_flat_(tensors, mesh, src=0):

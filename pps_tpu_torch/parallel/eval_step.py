@@ -76,7 +76,10 @@ def put_global_batch(mesh, arr):
             'shard would mis-align features to images (callers pad the '
             'tail batch to a divisible size)'.format(arr.shape[0],
                                                      mesh.world_size))
-    return arr[slice(*mesh_lib.local_rows(mesh, arr.shape[0]))]
+    # extraction folds the model axis into data (no classifier on the
+    # path): each rank takes the rows of its flat rank
+    return arr[slice(*mesh_lib.local_rows(mesh, arr.shape[0],
+                                          fold_model=True))]
 
 
 def fetch_global(mesh, x):

@@ -1,4 +1,4 @@
-"""The data mesh (counterpart of ``pps_tpu/parallel/mesh.py``).
+"""The (data, model) mesh (counterpart of ``pps_tpu/parallel/mesh.py``).
 
 pps_tpu has one controller over a ``jax.sharding.Mesh(('data', 'model'))``
 and lets XLA insert the collectives.  The port maps that onto PyTorch's
@@ -17,9 +17,15 @@ own idiom, in two forms:
   [...])`` takes an explicit list, which may name one device more than
   once (the CPU tests use ``['cpu'] * 8``; one card can hold four shards).
 
-Only the ``data`` axis is ported: a model axis above 1 (class-sharded
-classifier FCs) raises, naming ROADMAP slice 9.  Nothing of
-``torch.distributed`` is imported at module level.
+Ranks are laid out row-major over ``(n_data, n_model)``, as pps_tpu's
+devices are (``reshape(n_data, n_model)``): rank ``r`` sits at
+``(r // n_model, r % n_model)``.  The ranks of one data index form a
+**model group** (they see the same rows and split the classes of the
+classifier FCs, ``param_shardings``); the ranks of one model index form a
+**data group** (they split the rows; a class shard's gradient is summed
+over it).  Every rank creates every subgroup, in one order (a subgroup
+made on some ranks only would hang).  Nothing of ``torch.distributed`` is
+imported at module level.
 """
 
 import datetime
@@ -31,11 +37,6 @@ import numpy as np
 import torch
 
 from pps_tpu_torch.device import resolve_device
-
-_MODEL_AXIS_TODO = ('a model axis above 1 (class-sharded classifier FCs) is '
-                    'not ported yet (ROADMAP slice 9: the model axis); '
-                    'mesh shape {}')
-
 
 def _dist():
     import torch.distributed as dist
@@ -60,17 +61,24 @@ class Mesh(object):
     group: the default process group, or None.
     cpu_group: a gloo group over the same ranks for host-side agreement
       (preemption, the gathers of host features), or None.
+    data_group / model_group: this rank's data group and model group (the
+      process group of each; ``group`` where one spans every rank, None
+      where it holds this rank alone or there is no process group).
+    data_index / model_index: this rank's grid position.
     device: this process's device.
     """
 
     def __init__(self, devices, axis_names, device, group=None,
-                 cpu_group=None):
+                 cpu_group=None, data_group=None, model_group=None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
+        self.n_data, self.n_model = (int(v) for v in devices.shape)
         self.device = device
         self.group = group
         self.cpu_group = cpu_group
+        self.data_group = data_group
+        self.model_group = model_group
         if group is not None:
             dist = _dist()
             self.rank = dist.get_rank()
@@ -78,6 +86,14 @@ class Mesh(object):
             self.backend = dist.get_backend()
         else:
             self.rank, self.world_size, self.backend = 0, 1, None
+
+    @property
+    def data_index(self):
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self):
+        return self.rank % self.n_model
 
     @property
     def size(self):
@@ -95,9 +111,9 @@ class Mesh(object):
         return list(self.devices.flat)
 
     def __repr__(self):
-        return 'Mesh({}, rank {}/{}, device {}, backend {})'.format(
-            self.shape, self.rank, self.world_size, self.device,
-            self.backend)
+        return 'Mesh({}, rank {}/{} at {}, device {}, backend {})'.format(
+            self.shape, self.rank, self.world_size,
+            (self.data_index, self.model_index), self.device, self.backend)
 
 
 def build_mesh(cfg=None, devices=None, mesh_shape=None, device=None):
@@ -162,15 +178,41 @@ def build_mesh(cfg=None, devices=None, mesh_shape=None, device=None):
             mesh_shape, n))
     grid = np.empty(n_data * n_model, object)
     grid[:] = items[:n_data * n_model]
+    data_group = model_group = None
+    if group is not None:
+        data_group, model_group = _axis_groups(n_data, n_model)
     return Mesh(grid.reshape(n_data, n_model), names, local, group=group,
-                cpu_group=cpu_group)
+                cpu_group=cpu_group, data_group=data_group,
+                model_group=model_group)
 
 
-def check_data_only(mesh):
-    """Raise for a model axis above 1 (ROADMAP slice 9)."""
-    if mesh.devices.shape[1] > 1:
-        raise NotImplementedError(_MODEL_AXIS_TODO.format(
-            tuple(mesh.devices.shape)))
+def _axis_groups(n_data, n_model):
+    """(data group, model group) of this rank on an (n_data, n_model)
+    grid of the process group's ranks.  Every rank creates every subgroup
+    in the same order (``dist.new_group`` is collective over the world),
+    once per grid shape; a group of one rank is None, a group of every
+    rank the default group."""
+    key = ('axis_groups', n_data, n_model)
+    if key not in _STATE:
+        dist = _dist()
+        rank = dist.get_rank()
+        grid = np.arange(n_data * n_model).reshape(n_data, n_model)
+
+        def mine(lines):
+            if len(lines[0]) == 1:
+                return None
+            if len(lines[0]) == n_data * n_model:
+                return dist.group.WORLD
+            out = None
+            for ranks in lines:
+                g = dist.new_group([int(r) for r in ranks])
+                if rank in ranks:
+                    out = g
+            return out
+        model = mine([list(row) for row in grid])
+        data = mine([list(col) for col in grid.T])
+        _STATE[key] = (data, model)
+    return _STATE[key]
 
 
 class RowSharding(object):
@@ -205,20 +247,75 @@ def batch_sharding(mesh, fold_model=True):
                        else n_data)
 
 
-def local_rows(mesh, n):
-    """(start, stop) of this rank's rows of an ``n``-row global batch.
-    A model axis above 1 raises (ROADMAP slice 9): its ranks would each
-    take the rows of their whole data slot."""
-    check_data_only(mesh)
-    return batch_sharding(mesh, fold_model=False).rows(n)[mesh.rank]
+def local_rows(mesh, n, fold_model=False):
+    """(start, stop) of this rank's rows of an ``n``-row global batch: the
+    rows of its data slot (shared by its model group), or with
+    ``fold_model`` (extraction) the rows of its flat rank."""
+    return batch_sharding(mesh, fold_model=fold_model).rows(n)[mesh.rank]
+
+
+def is_class_sharded(name):
+    """pps_tpu's ``_is_class_sharded``: a parameter whose last dim is the
+    identity-class dim (``*fc_w``, ``*fc_b``, the CRM ``_fc8`` weights
+    and biases)."""
+    return name.endswith('fc_w') or name.endswith('fc_b') or (
+        '_fc8' in name and (name.endswith('_w') or name.endswith('_b')))
+
+
+class ClassSharding(object):
+    """A class-sharded parameter: its last dim split in ``n_parts``
+    contiguous slices over the model axis; model index j owns
+    ``slice(j * K / n_parts, (j + 1) * K / n_parts)``."""
+
+    def __init__(self, n_parts):
+        self.n_parts = int(n_parts)
+
+    def classes(self, k, index):
+        per = k // self.n_parts
+        return index * per, (index + 1) * per
+
+    def __eq__(self, other):
+        return isinstance(other, ClassSharding) and \
+            other.n_parts == self.n_parts
 
 
 def param_shardings(mesh, params):
-    """{name: RowSharding}: every parameter replicated.  A model axis
-    above 1 raises (ROADMAP slice 9)."""
-    check_data_only(mesh)
+    """{name: ClassSharding or RowSharding}: a classifier FC (pps_tpu's
+    predicate) whose last dim divides by the model axis is class-sharded
+    over it; every other parameter is replicated.  Market's K = 751 and
+    CUHK03's K = 767 divide by no model axis of 2, so their FCs stay
+    replicated there; Duke's K = 702 shards."""
     rep = replicated(mesh)
-    return {name: rep for name in params}
+    n_model = mesh.n_model
+    out = {}
+    for name, p in params.items():
+        if (n_model > 1 and is_class_sharded(name)
+                and p.shape[-1] % n_model == 0):
+            out[name] = ClassSharding(n_model)
+        else:
+            out[name] = rep
+    return out
+
+
+def placed_class_names(mesh, params, num_logits):
+    """The names of a placed train state's class slices, sorted (one order
+    on every rank, for collectives over them): the class-sharded params
+    (``param_shardings``' rule for a model of ``num_logits`` classes) that
+    hold ``num_logits / n_model`` classes."""
+    m = mesh.n_model
+    if m == 1 or num_logits % m:
+        return []
+    return sorted(n for n, p in params.items()
+                  if is_class_sharded(n) and p.shape[-1] == num_logits // m)
+
+
+def class_slice(mesh, t):
+    """This rank's class slice of a full tensor (its last dim), as a
+    contiguous copy."""
+    lo, hi = ClassSharding(mesh.n_model).classes(t.shape[-1],
+                                                 mesh.model_index)
+    t = t[..., lo:hi]
+    return t.contiguous() if torch.is_tensor(t) else np.ascontiguousarray(t)
 
 
 # ---------------------------------------------------------------------------

@@ -7,17 +7,24 @@ batch of the host chain ('data', float32 or bfloat16) goes straight to
 the model.  Scalars that change between steps (``lr``,
 ``loss_scale_factor``) are arguments.
 
-Over a data mesh (one process per rank, ``parallel/mesh.py``) each rank
-steps on its rows of the global batch, and the step is pps_tpu's
+Over a (data, model) mesh (one process per rank, ``parallel/mesh.py``)
+each rank steps on the rows of its data slot, and the step is pps_tpu's
 global-batch step:
 
 * the augmentation draws and the dropout mask are drawn for the GLOBAL
-  batch from the same generator on every rank, then sliced to the rank's
-  rows, so the ranks' augmented rows put together are the one-rank batch;
+  batch from the same generator on every rank, then sliced to the data
+  slot's rows, so the slots' augmented rows put together are the one-rank
+  batch;
 * train-mode BN (body and head) takes global statistics, and each rank's
   loss is its share of the global loss (``parallel/collectives.py``);
-* after backward, one flat all-reduce (a sum) of the gradient, then the
-  unchanged momentum-SGD, so every rank holds the same state.
+* under a model axis the classifier FCs whose class count divides by it
+  are class-sharded (``place_train_state`` slices them and their
+  momentum); their softmaxes reduce over the model group;
+* after backward, one flat all-reduce (a sum) of the replicated
+  parameters' gradient over every rank, and one of the class-sharded
+  parameters' over the data group; then the unchanged (elementwise)
+  momentum-SGD, so every rank holds the same replicated state and its
+  model group's class slices.
 """
 
 import numpy as np
@@ -31,8 +38,9 @@ from pps_tpu_torch.solver import optimizer as opt_lib
 
 
 def _rank_rows(x, mesh, levels=1):
-    """This rank's rows of a global [levels * B, ...] tensor laid out
-    level-major (FPN's batch concat), as a [levels * B_local, ...] one."""
+    """This rank's data slot's rows of a global [levels * B, ...] tensor
+    laid out level-major (FPN's batch concat), as a [levels * B_local,
+    ...] one."""
     if mesh is None:
         return x
     g = x.reshape((levels, -1) + tuple(x.shape[1:]))
@@ -51,7 +59,9 @@ def make_train_step(model, cfg, meta, trainable=None, device=None,
       batch = {'data_u8' [B, H, W, 3] uint8, 'flipped' [B] bool, and on
         the padded wire 'valid_hw' [B, 2]} or {'data' [B, H', W', 3]
         float32 or bfloat16}, plus 'labels_int32' [B] and 'labels_oh'
-        [B, K], all on the device (under a mesh: this rank's rows);
+        [B, K], all on the device (under a mesh: this rank's rows, and
+        ``labels_oh`` whole or, as ``shard_batch`` gives it, its class
+        slice);
       generator: a ``torch.Generator`` on the device; it draws the
         augmentation params and the dropout mask (under a mesh, seeded
         alike on every rank);
@@ -61,16 +71,15 @@ def make_train_step(model, cfg, meta, trainable=None, device=None,
         draws); under a mesh they are the global batch's;
       logs: the model's logs plus 'lr', each a 0-d tensor on the device
         (under a mesh, global values).
-    mesh: a distributed ``parallel/mesh.Mesh`` (its model axis 1): the
-      data-parallel step.  None, or a mesh without a process group, is
-      the one-device step.
+    mesh: a distributed ``parallel/mesh.Mesh``: the (data, model) step,
+      on a train state placed by ``place_train_state``.  None, or a mesh
+      without a process group, is the one-device step.
     """
     device = resolve_device(device)
     if device != model.device:
         raise ValueError('train step on {} for a model on {}'.format(
             device, model.device))
     if mesh is not None:
-        mesh_lib.check_data_only(mesh)
         if mesh.distributed and mesh.device != device:
             raise ValueError('train step on {} for a mesh on {}'.format(
                 device, mesh.device))
@@ -86,7 +95,7 @@ def make_train_step(model, cfg, meta, trainable=None, device=None,
 
     def global_draws(batch, draws, generator):
         """The global batch's draws, sliced to this rank's rows."""
-        n = batch['labels_int32'].shape[0] * mesh.world_size
+        n = batch['labels_int32'].shape[0] * mesh.n_data
         out = {}
         if 'data_u8' in batch:
             aug = draws.get('augment')
@@ -146,8 +155,16 @@ def make_train_step(model, cfg, meta, trainable=None, device=None,
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(names, grads)}
         if mesh is not None:
-            # the objective is the sum of the ranks' losses
-            collectives.all_reduce_flat_(list(grads.values()), mesh)
+            # the objective is the sum of the ranks' losses: a replicated
+            # param's gradient sums over every rank, a class slice's over
+            # the ranks that hold it (the data group)
+            sharded = mesh_lib.placed_class_names(
+                mesh, params, model.head_spec['num_logits'])
+            collectives.all_reduce_flat_(
+                [g for k, g in grads.items() if k not in sharded], mesh)
+            collectives.all_reduce_flat_(
+                [g for k, g in grads.items() if k in sharded], mesh,
+                axis='data')
         new_params, new_opt = opt_lib.sgd_update(
             params, grads, train_state['opt'], lr, meta, momentum=momentum,
             flavor=flavor, iter_size=iter_size, num_devices=1,
@@ -166,23 +183,60 @@ def make_train_step(model, cfg, meta, trainable=None, device=None,
 
 def place_train_state(mesh, train_state):
     """Every rank takes rank 0's train state, bitwise (one broadcast per
-    dtype), so the ranks start equal.  In place; returns the state."""
+    dtype), so the ranks start equal; under a model axis each then keeps
+    its class slice of every class-sharded param and of its momentum (and
+    accumulator).  Returns the state (the dicts' entries replaced)."""
     if mesh is None or not mesh.distributed:
         return train_state
-    mesh_lib.param_shardings(mesh, train_state['params'])  # model axis 1
     tensors = list(train_state['params'].values()) + \
         list(train_state['state'].values())
     for v in train_state['opt'].values():
         tensors += list(v.values()) if isinstance(v, dict) else [v]
     collectives.broadcast_flat_([t for t in tensors if torch.is_tensor(t)],
                                 mesh)
+    rules = mesh_lib.param_shardings(mesh, train_state['params'])
+    sharded = [n for n, r in rules.items()
+               if isinstance(r, mesh_lib.ClassSharding)]
+    trees = [train_state['params']] + [
+        v for v in train_state['opt'].values() if isinstance(v, dict)]
+    for tree in trees:
+        for n in sharded:
+            tree[n] = mesh_lib.class_slice(mesh, tree[n])
     return train_state
+
+
+def gather_train_state(mesh, train_state, num_logits):
+    """The whole train state from a placed one: every class slice (of a
+    model with ``num_logits`` classes) put together over the model group
+    (a collective: every rank calls it, on the main thread).  Without a
+    model axis the state as it is."""
+    if mesh is None or not mesh.distributed or mesh.n_model == 1:
+        return train_state
+    names = mesh_lib.placed_class_names(mesh, train_state['params'],
+                                        num_logits)
+    out = {'params': dict(train_state['params']),
+           'state': train_state['state'], 'opt': {}}
+    for k, v in train_state['opt'].items():
+        out['opt'][k] = dict(v) if isinstance(v, dict) else v
+    for tree in [out['params']] + [v for v in out['opt'].values()
+                                   if isinstance(v, dict)]:
+        for n in names:
+            tree[n] = collectives.gather_classes(tree[n], mesh)
+    return out
 
 
 def shard_batch(mesh, batch):
     """This rank's rows of a global batch (a dict of [B, ...] arrays or
-    tensors); the identity without a distributed mesh."""
+    tensors): the rows of its data slot; under a model axis that divides
+    the class count, ``labels_oh`` also to this rank's class slice.  The
+    identity without a distributed mesh."""
     if mesh is None or not mesh.distributed:
         return batch
-    return {k: v[slice(*mesh_lib.local_rows(mesh, v.shape[0]))]
-            for k, v in batch.items()}
+    n_model = mesh.devices.shape[1]
+    out = {}
+    for k, v in batch.items():
+        v = v[slice(*mesh_lib.local_rows(mesh, v.shape[0]))]
+        if k == 'labels_oh' and n_model > 1 and v.shape[-1] % n_model == 0:
+            v = mesh_lib.class_slice(mesh, v)
+        out[k] = v
+    return out

@@ -2,11 +2,12 @@
 ``tools/test_net.py``).
 
     python -m pps_tpu_torch.tools.test_net --cfg <yaml> [--wait]
-        [--device cuda|cpu] TEST.WEIGHTS <pkl> [KEY VALUE ...]
+        [--device cuda|cpu] TEST.WEIGHTS <pkl or .dcp dir> [KEY VALUE ...]
 
 Artifacts (features.pkl) land in <OUTPUT_DIR>/test/<dataset>/.  Under
 ``torchrun`` (one process per card) the ranks split every batch and rank
-0 evaluates and writes.
+0 evaluates and writes; a ``TPU.MESH_SHAPE (n, m)`` model axis is folded
+into data (extraction runs no classifier).
 """
 
 import argparse

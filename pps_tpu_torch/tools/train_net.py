@@ -14,7 +14,12 @@ Data-parallel over N cards, one process per card:
         NUM_GPUS N [KEY VALUE ...]
 
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
-``MASTER_PORT`` set the process group up; rank 0 writes and logs.)
+``MASTER_PORT`` set the process group up; rank 0 writes and logs.)  A
+model axis: ``TPU.MESH_SHAPE (n, m)`` with ``n x m`` ranks (the ranks of
+a model group share rows and split the classifier FCs' classes when the
+class count divides by m).  ``TPU.CKPT_FORMAT orbax`` writes the epoch
+snapshots and the preemption checkpoint as sharded ``*.dcp`` directories;
+``PPS_TPU_DUMP_JAXPR=1`` writes ``train_step.graph.txt`` beside them.
 """
 
 import argparse

@@ -210,7 +210,14 @@ def _port_model(p):
     from pps_tpu_torch.flagship import flagship_cfg
     from pps_tpu_torch.models.model import build_model
     from pps_tpu_torch.solver import optimizer as opt_lib
-    cfg = flagship_cfg(**p['cfg'])
+    if p.get('cfg_list'):
+        from pps_tpu_torch import config as tcfg
+        tcfg.reset_cfg()
+        tcfg.merge_cfg_from_list(p['cfg_list'])
+        tcfg.assert_and_infer_cfg()
+        cfg = tcfg.cfg
+    else:
+        cfg = flagship_cfg(**p['cfg'])
     if p.get('opts'):
         from pps_tpu_torch import config as tcfg
         cfg.immutable(False)
@@ -228,9 +235,12 @@ def step_once(p, mesh):
     """One train step of a payload on ``mesh`` (None: one rank) from its
     global batch and global draws; ``triplet_only`` trains the triplet term
     alone (the CRM off by the payload's opts), ``planted`` adds the planted
-    fault of ``chip_smoke.triplet_not_over_world``.  Returns numpy results
-    and the augmented rows this rank trained on."""
-    from chip_smoke import triplet_not_over_world, triplet_only
+    fault of ``chip_smoke.triplet_not_over_world``, ``planted_model`` that
+    of ``chip_smoke.class_terms_not_over_model``.  Returns numpy results
+    (the class-sharded params and momentum gathered) and the augmented
+    rows this rank trained on."""
+    from chip_smoke import (class_terms_not_over_model,
+                            triplet_not_over_world, triplet_only)
     from pps_tpu_torch.parallel import train_step as ts_lib
     cfg, model, meta, ts, torch = _port_model(p)
     ts = ts_lib.place_train_state(mesh, ts)
@@ -254,7 +264,12 @@ def step_once(p, mesh):
         if p.get('planted'):
             stack.enter_context(triplet_not_over_world(
                 1 if mesh is None else mesh.world_size))
+        if p.get('planted_model'):
+            stack.enter_context(class_terms_not_over_model(
+                1 if mesh is None else mesh.n_model))
         new, logs = step(ts, batch, p['lr'], 1.0, gen, draws=draws)
+    new = ts_lib.gather_train_state(mesh, new,
+                                    model.head_spec['num_logits'])
     return {'logs': {k: float(v) for k, v in logs.items()},
             'params': {k: v.numpy() for k, v in new['params'].items()},
             'state': {k: v.numpy() for k, v in new['state'].items()},
@@ -265,7 +280,8 @@ def step_once(p, mesh):
 
 def case_step(payload, mesh):
     """Each of the payload's steps; rank 0 returns everything, the other
-    ranks a digest of their state (every rank must hold the same)."""
+    ranks a digest of their state (every rank must hold the same).  Then,
+    with ``payload['infer']``, ``run_inference`` on every rank."""
     out = []
     for p in payload['steps']:
         res = step_once(dict(payload['common'], **p), mesh)
@@ -276,6 +292,17 @@ def case_step(payload, mesh):
                               for k, v in res['params'].items()},
                    'data': res['data'], 'logs': res['logs']}
         out.append(res)
+    if payload.get('infer'):
+        from pps_tpu_torch import config as tcfg
+        from pps_tpu_torch.data import catalog
+        from pps_tpu_torch.engine import test as test_engine
+        p = payload['infer']
+        for name, (imdir, ann) in p['datasets'].items():
+            catalog.register_dataset(name, imdir, ann)
+        tcfg.reset_cfg()
+        tcfg.merge_cfg_from_list(p['opts'])
+        test_engine.run_inference(tcfg.cfg, output_dir=p['out'],
+                                  decode_fn=decoder(p['hw']), device='cpu')
     return out
 
 
@@ -297,9 +324,10 @@ class AfterPolls(object):
 def case_driver(payload, mesh):
     """``train_model`` on every rank: a continuous run, a run preempted by
     one rank's flag, its resume; then ``run_inference`` in float32 and
-    int8, and with a model axis (``payload['model_axis']``), which must
-    raise.  Returns what each run left (checkpoint names, the Preempted
-    point, rank 0's final blobs and features, the model axis's error)."""
+    int8, and with a model axis (``payload['model_axis']``: extraction
+    folds it into data).  Returns what each run left (checkpoint names, the
+    Preempted point, rank 0's final blobs and features, the model axis's
+    features)."""
     import torch
     from pps_tpu_torch import config as tcfg
     from pps_tpu_torch.data import catalog
@@ -339,7 +367,7 @@ def case_driver(payload, mesh):
             out['final'] = load_object(ck['final'])['blobs']
             out['cont_final'] = load_object(
                 root + '/cont/model_final.pkl')['blobs']
-    for name, opts in payload['test'].items():
+    for name, opts in payload.get('test', {}).items():
         cfg = cfg_of(opts)
         res = test_engine.run_inference(cfg, output_dir=root + '/' + name,
                                         decode_fn=dec, device='cpu')
@@ -347,13 +375,64 @@ def case_driver(payload, mesh):
         if mesh.rank == 0:
             out[name + '_feats'] = load_object(
                 root + '/' + name + '/features.pkl')['all_feats']
-    out['model_axis'] = None
-    try:
-        test_engine.run_inference(cfg_of(payload['model_axis']),
-                                  output_dir=root + '/model_axis',
-                                  decode_fn=dec, device='cpu')
-    except NotImplementedError as e:
-        out['model_axis'] = str(e)
+    if not payload.get('model_axis'):
+        return out
+    test_engine.run_inference(cfg_of(payload['model_axis']),
+                              output_dir=root + '/model_axis',
+                              decode_fn=dec, device='cpu')
+    if mesh.rank == 0:
+        out['model_axis_feats'] = load_object(
+            root + '/model_axis/features.pkl')['all_feats']
+    return out
+
+
+def _dcp_tree_of(tree):
+    """A numpy tree in the port's layout -> tensors on the CPU."""
+    import torch
+    return {part: ({k: ({n: torch.tensor(a) for n, a in v.items()}
+                        if isinstance(v, dict) else torch.tensor(v))
+                    for k, v in t.items()})
+            for part, t in tree.items()}
+
+
+def case_dcp(payload, mesh):
+    """The sharded checkpoint on this grid: load ``payload['load']`` (a
+    directory written elsewhere, waited for) into a template placed here,
+    then save
+    ``payload['tree']`` placed here to ``payload['save']``.  Returns the
+    loaded tree gathered and, per class-sharded name, this rank's slice
+    as loaded."""
+    import torch
+    from pps_tpu_torch.engine import checkpoint as ckpt
+    from pps_tpu_torch.parallel import train_step as ts_lib
+    k = payload['num_logits']
+    out = {}
+    if payload.get('load'):
+        # a directory another group of ranks is writing: wait for its end
+        meta = os.path.join(payload['load'], '.metadata')
+        deadline = time.monotonic() + 60
+        while not os.path.isfile(meta) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        zeros = _dcp_tree_of(payload['tree'])
+        for part in zeros.values():
+            for v in part.values():
+                for t in (v.values() if isinstance(v, dict) else [v]):
+                    t.zero_()
+        tmpl = ts_lib.place_train_state(mesh, zeros)
+        got = ckpt.load_checkpoint_dcp(payload['load'], tmpl, mesh=mesh,
+                                       num_logits=k)
+        out['local'] = {n: got['params'][n].numpy()
+                        for n in payload['sharded']}
+        full = ts_lib.gather_train_state(mesh, got, k)
+        out['loaded'] = {part: {n: (v.numpy() if torch.is_tensor(v) else
+                                    {m: t.numpy() for m, t in v.items()})
+                                for n, v in t.items()}
+                         for part, t in full.items()}
+    if payload.get('save'):
+        ts = ts_lib.place_train_state(mesh, _dcp_tree_of(payload['tree']))
+        ckpt.save_checkpoint_dcp(payload['save'], ts, mesh=mesh,
+                                 num_logits=k)
+        ckpt.wait_for_dcp()
     return out
 
 
@@ -372,7 +451,8 @@ def main(argv):
         mesh_lib.init_distributed(device=device,
                                   backend=payload.get('backend'))
         try:
-            mesh = mesh_lib.build_mesh(device=device)
+            mesh = mesh_lib.build_mesh(device=device,
+                                       mesh_shape=payload.get('mesh_shape'))
             result = globals()['case_' + case](payload, mesh)
         finally:
             mesh_lib.destroy_distributed()

@@ -148,8 +148,11 @@ def test_run_inference_on_two_ranks_matches_one(runs, name):
 
 
 def test_run_inference_refuses_a_model_axis(runs):
-    """TPU.MESH_SHAPE (-1, 2) over two ranks: a (1, 2) mesh, whose ranks
-    would each embed the whole global batch; every rank raises, naming
-    slice 9."""
-    for r in runs['two']:
-        assert r['model_axis'] is not None and 'slice 9' in r['model_axis']
+    """TPU.MESH_SHAPE (-1, 2) over two ranks: a (1, 2) mesh.  Extraction
+    folds the model axis into data (pps_tpu's batch_sharding(fold_model=
+    True)), so each rank embeds its own rows, not the whole global batch
+    twice: the features equal one process's."""
+    feats = runs['two'][0]['model_axis_feats']
+    assert feats.shape == runs['one']['f32_feats'].shape == (10, 3968)
+    np.testing.assert_allclose(feats, runs['one']['f32_feats'],
+                               atol=FEAT_ATOL)

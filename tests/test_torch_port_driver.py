@@ -328,24 +328,22 @@ def test_nan_loss_aborts(runs, tmp_path):
 
 
 def test_unported_options_raise(runs, tmp_path, monkeypatch):
+    """What the port still refuses.  (The host chain is ported: slice 3b;
+    NUM_GPUS > 1 and a process group: slice 8; the model axis,
+    TPU.CKPT_FORMAT orbax and PPS_TPU_DUMP_JAXPR: slice 9,
+    tests/test_torch_port_model_axis.py, test_torch_port_ckpt_sharded.py,
+    test_torch_port_graph_dump.py.)  A model axis of 2 needs two ranks;
+    pps_tpu's .orbax directories cannot be read without orbax, and the
+    message names pkl, the format both packages read."""
     tc = tcfg.cfg
-    # (TPU.DEVICE_AUGMENT False, the host chain, is ported: slice 3b;
-    # NUM_GPUS > 1 and a process group: slice 8,
-    # tests/test_torch_port_dp_driver.py)
-    for opts, match in ((['TPU.CKPT_FORMAT', 'orbax'], 'slice 9'),
-                        (['TPU.MESH_SHAPE', '(-1, 2)'], 'slice 9')):
-        tcfg.reset_cfg()
-        both_cfgs(runs['opts'] + opts)
-        with pytest.raises(NotImplementedError, match=match):
-            ttrain.train_model(tc, output_dir=str(tmp_path), device='cpu')
+    tcfg.reset_cfg()
+    both_cfgs(runs['opts'] + ['TPU.MESH_SHAPE', '(-1, 2)'])
+    with pytest.raises(ValueError, match='model axis of 2'):
+        ttrain.train_model(tc, output_dir=str(tmp_path), device='cpu')
     tcfg.reset_cfg()
     both_cfgs(runs['opts'])
-    monkeypatch.setenv('PPS_TPU_DUMP_JAXPR', '1')
-    with pytest.raises(NotImplementedError, match='jaxpr'):
-        ttrain.train_model(tc, output_dir=str(tmp_path), device='cpu')
-    monkeypatch.delenv('PPS_TPU_DUMP_JAXPR')
     (tmp_path / 'model_epoch1.orbax').mkdir()
-    with pytest.raises(NotImplementedError, match='orbax'):
+    with pytest.raises(ValueError, match='pkl is the format both'):
         ttrain.train_model(tc, output_dir=str(tmp_path), device='cpu')
 
 

@@ -315,8 +315,10 @@ def test_run_inference_matches(tmp_path, capsys):
 def test_engine_refuses_unported_paths(tmp_path):
     # (REID.RERANK and REID.VIS are ported: slice 5; TPU.INT8_EVAL: the
     # variants slice, tests/test_torch_port_quantize.py)
+    # (.dcp weights are ported: slice 9; pps_tpu's .orbax directories
+    # need orbax's storage layer, and the message names pkl)
     _, tc = both_cfgs(TINY)
-    with pytest.raises(NotImplementedError, match='slice 9'):
+    with pytest.raises(ValueError, match='pkl is the format both'):
         ttest_engine.test_net(tc, str(tmp_path / 'w.orbax'),
                               'port_eval_test', device='cpu')
     # mixed sizes and host preprocessing are ported (slice 3b): the

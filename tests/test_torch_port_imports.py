@@ -37,11 +37,12 @@ def _fresh_port_cfg():
 
 
 # Runs in a fresh interpreter (this one has jax loaded by conftest): jax,
-# pps_tpu and yaml are removed from sys.modules and blocked by a meta-path
+# pps_tpu, orbax and yaml are removed from sys.modules and blocked by a
+# meta-path
 # finder, then every port module is imported and the flagship cfg built.
 _CHILD = r'''
 import importlib, importlib.abc, sys
-BLOCK = ('jax', 'pps_tpu', 'yaml')
+BLOCK = ('jax', 'pps_tpu', 'orbax', 'yaml')
 def blocked(name):
     return any(name == b or name.startswith(b + '.') for b in BLOCK)
 class Blocker(importlib.abc.MetaPathFinder):
@@ -75,8 +76,8 @@ def test_port_imports_without_jax_or_pps_tpu():
 
 
 _FORBIDDEN = re.compile(
-    r'^\s*(import\s+jax\b|from\s+jax\b|import\s+pps_tpu\b|from\s+pps_tpu\b)',
-    re.MULTILINE)
+    r'^\s*(import\s+jax\b|from\s+jax\b|import\s+pps_tpu\b|from\s+pps_tpu\b|'
+    r'import\s+orbax\b|from\s+orbax\b)', re.MULTILINE)
 
 
 @pytest.mark.parametrize('path', sorted(
@@ -118,6 +119,11 @@ def test_forbidden_pattern_matches_only_the_jax_package():
     assert _FORBIDDEN.search('    import jax.numpy as jnp')
     assert not _FORBIDDEN.search('from pps_tpu_torch.models import resnet')
     assert not _FORBIDDEN.search('import pps_tpu_torch')
+    # orbax by its name or as the prefix 'orbax.'
+    assert _FORBIDDEN.search('    import orbax.checkpoint as ocp')
+    assert _FORBIDDEN.search('from orbax import checkpoint')
+    assert _FORBIDDEN.search('import orbax')
+    assert not _FORBIDDEN.search('import orbaxish')
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():

@@ -59,9 +59,13 @@ def test_build_mesh_follows_num_devices_and_cfg_axes():
     cfg.TPU.MESH_SHAPE = (-1, 2)
     tm = tmesh.build_mesh(cfg, devices=['cpu'] * 8)
     assert tm.devices.shape == (2, 2) and tm.shape == {'data': 2, 'model': 2}
-    # a model axis above 1 trains nowhere yet (slice 9)
-    with pytest.raises(NotImplementedError, match='slice 9'):
-        tmesh.param_shardings(tm, {'w': torch.zeros(2)})
+    # a model axis above 1: the classifier FCs whose class count divides
+    # by it are class-sharded, everything else replicated (pps_tpu's rule)
+    rules = tmesh.param_shardings(tm, {'w': torch.zeros(2),
+                                       'pps_fc_w': torch.zeros(3, 4, 6),
+                                       'crm_fc8c_b': torch.zeros(7)})
+    assert rules['pps_fc_w'] == tmesh.ClassSharding(2)
+    assert rules['w'].n_parts == rules['crm_fc8c_b'].n_parts == 1
     cfg.TPU.NUM_DEVICES = 9
     with pytest.raises(ValueError, match='NUM_DEVICES'):
         tmesh.build_mesh(cfg, devices=['cpu'] * 8)
