@@ -184,13 +184,30 @@ the same synthetic Market set):
               --int8) in child processes; each .pt2 reloaded and run
               against eager extraction within 1e-6.
 
+Last, the measurement tools:
+30. tools   - the 'iter' SGD flavor (ITER_SIZE 3) 6 steps card vs CPU,
+              bitwise; every tool of pps_tpu_torch/tools at full width with
+              its counts cut, in process through main(argv):
+              profile_train_step, bench_int8 (cosine >= 0.99, conv2d_int8
+              launched), bench_distmat, bench_exact_scan (the exact
+              variants against streaming_topk outside 1e-5 near-ties),
+              bench_rerank (1,000 + 5,000, card vs C++ by the near-tie
+              rule), bench_serving (its top-k against RetrievalIndex.search
+              on the same query; then --load, exact mode, concurrency 1
+              and 4, against its own daemon), bench_ivf_recall (64 ids x
+              32, 5 steps; recall 1.0 at a full probe), bench_train_e2e
+              (64 ids x 4, 1 epoch), data_loader_benchmark; and
+              ``python -m pps_tpu_torch.tools.trace_top_ops`` as a child
+              (its top rows named, their shares summing to at most 1); each
+              JSON line with the JAX tool's keys.
+
 The driver phases' own output (json_stats and Single Query lines, logs)
 goes to build/chip_smoke_logs/<phase>.log (a rank's to
 <phase>_rank<r>.log).  ``python3 chip_smoke.py --dp-rank CASE DIR`` is
 the process of one rank of a data- or model-parallel phase.  Then a
 {"phase_seconds": {...}} line (each phase's wall clock and the total), a
 {"kernels": [...]} line (launches counted per phase and kernel while the
-main path, phases 3, 5, 7, 8b-8d, 10-12d, 15-23 and 25-29, ran), the
+main path, phases 3, 5, 7, 8b-8d, 10-12d, 15-23 and 25-30, ran), the
 nvidia-smi line, and last {"ok": true, "device": {...}}.  Without a CUDA
 device it exits non-zero and prints no result.
 """
@@ -207,6 +224,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from pps_tpu_torch.utils.flops import (BF16_PEAK_FLOPS, HBM_BYTES_PER_S,
+                                       INT8_PEAK_OPS)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 GALLERY = 19732           # Market-1501 test gallery size
@@ -215,8 +235,6 @@ BATCH = 64
 REQUESTS = (1, 4, 16)     # images per request
 REPEATS = 5               # requests of each size, per index
 TOPK = 10
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-BF16_PEAK_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak (MFU)
 TRAIN_P, TRAIN_K = 8, 8    # the flagship's P x K batch
 WARMUP_STEPS, TIMED_STEPS = 3, 20
 MARKET_TRAIN_IMAGES = 12936  # Market-1501 train split: the epoch size
@@ -301,7 +319,6 @@ INT8_YAML = os.path.join(ROOT, 'configs', 'market1501',
                          'pps_crm_triplet_R-50_1x_int8.yaml')
 FPN_EPOCHS = 1                      # of the yaml's 121 (2 before the
 #   900 s budget; its loss gate is within epoch 0)
-INT8_PEAK_OPS = 1979e12             # H100 SXM dense int8 tensor-core peak
 INT8_CHECK_BATCH = 4                # the 53 body convs checked bitwise,
 #   here, at BATCH (the extraction batch; its tail is padded to BATCH) and
 #   at INT8_TAIL rows
@@ -338,19 +355,10 @@ def nvidia_smi_line():
 
 
 def cuda_ms(fn, iters, warmup=3):
-    """Mean milliseconds per call of ``fn`` on the current stream."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean milliseconds per call of ``fn`` on the current stream
+    (``utils/timer.cuda_ms``)."""
+    from pps_tpu_torch.utils.timer import cuda_ms as device_ms
+    return device_ms(fn, iters, warmup)
 
 
 # the numpy metrics (the golden path) of the test phases' distance matrices
@@ -669,28 +677,11 @@ def phase_profile(dev, model, params, state, gallery, cfg):
         extract_features(fn, params, state, imgs, BATCH)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    from pps_tpu_torch.tools.trace_top_ops import profile_rows
     rows, device_us = profile_rows(prof)
     emit('profile', batches=4, wall_ms=wall * 1e3,
          device_ms=device_us / 1e3,
          idle_share=max(0.0, 1 - device_us / 1e6 / wall), top=rows)
-
-
-def profile_rows(prof):
-    """Print the profiler's table to stderr; return the top-15 kernel rows
-    [name, device ms, count] and the total kernel time in us."""
-    from torch.autograd import DeviceType
-    avgs = prof.key_averages()
-    attr = ('self_device_time_total' if hasattr(avgs[0],
-                                                'self_device_time_total')
-            else 'self_cuda_time_total')
-    # kernel rows only: a CPU op's row repeats its kernels' time
-    rows = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
-                  key=lambda e: getattr(e, attr), reverse=True)
-    device_us = sum(getattr(e, attr) for e in rows)
-    print(avgs.table(sort_by=attr, row_limit=30), file=sys.stderr,
-          flush=True)
-    return ([[e.key[:80], getattr(e, attr) / 1e3, e.count]
-             for e in rows[:15]], device_us)
 
 
 # ---------------------------------------------------------------------------
@@ -921,6 +912,7 @@ def phase_profile_train(dev, step, ts, batch):
             ts, _ = step(ts, batch, 0.001, 1.0, gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    from pps_tpu_torch.tools.trace_top_ops import profile_rows
     rows, device_us = profile_rows(prof)
     emit('profile_train', steps=2, wall_ms=wall * 1e3,
          device_ms=device_us / 1e3,
@@ -1784,6 +1776,7 @@ def phase_test_int8(dev, out_root, final_pkl, decode, bf16_feats, bf16_run):
          stacked_extract_imgs_per_s_int8=stacked['int8'],
          stacked_extract_imgs_per_s_bf16_folded=stacked['bf16_folded'],
          log=log)
+    return stacked
 
 
 def phase_export(dev, out_root, final_pkl, decode):
@@ -4329,6 +4322,314 @@ def phase_retrieval_sharded(dev, ref):
          card=_CARD.get('smi'))
 
 
+# ---------------------------------------------------------------------------
+# the measurement tools (pps_tpu_torch/tools), ITER_SIZE's divide
+# ---------------------------------------------------------------------------
+
+# the JSON keys of the JAX tools' lines, which the port's tools keep
+BENCH_INT8_KEYS = {                 # tools/bench_int8.py:99-114
+    'imgs_per_sec_per_chip', 'int8_speedup_vs_bf16', 'int8_speedup_vs_fold',
+    'fold_speedup_vs_bf16', 'int8_cosine_vs_bf16_min',
+    'int8_cosine_vs_bf16_mean', 'calib_quantize_seconds', 'depth', 'batch',
+    'device_kind'}
+EXACT_SCAN_KEYS = {                 # tools/bench_exact_scan.py:226-235
+    'gallery_size', 'dim', 'topk', 'nq', 'bandwidth_bound_ms',
+    'measured_read_GBps', 'latency_ms', 'checks', 'device_kind'}
+SERVING_KEYS = {                    # tools/bench_serving.py:466-472
+    'single_query_latency_ms', 'gallery_size', 'dim', 'topk',
+    'gallery_dtype', 'embed', 'device_kind'}
+LOAD_ROW_KEYS = {                   # tools/bench_serving.py:283-297
+    'mode', 'concurrency', 'qps', 'p50_ms', 'p95_ms', 'p99_ms', 'n', 'shed',
+    'errors', 'error_kinds', 'embed_dispatches', 'embed_images',
+    'search_dispatches', 'search_queries'}
+LOAD_KEYS = {'loadbench', 'rows'}   # tools/bench_serving.py:305
+IVF_RECALL_KEYS = {                 # tools/bench_ivf_recall.py:246-255
+    'metric', 'gallery', 'dim', 'n_ids', 'train_steps', 'final_loss',
+    'nlist', 'k', 'recall_sweep_nprobe', 'train_s', 'embed_s', 'device_kind'}
+TOOLS_IVF_IDS, TOOLS_IVF_PER_ID = 64, 32
+TOOLS_E2E_IDS, TOOLS_E2E_PER_ID = 64, 4
+TOOLS_RERANK = (1000, 5000)         # queries, gallery
+ITER_SIZE, ITER_STEPS = 3, 6        # the 'iter' flavor held card vs CPU
+
+
+def iter_size_agree(dev):
+    """The 'iter' SGD flavor (ITER_SIZE 3, one device) for 6 steps from the
+    same numpy params and gradients on the card and the CPU: every param,
+    momentum and accumulator bitwise equal.  Also the divide as it was (by
+    a Python float) on the same accumulators: the elements where the card's
+    quotient differs from the CPU's."""
+    import torch
+    from pps_tpu_torch.flagship import flagship_cfg
+    from pps_tpu_torch.solver import optimizer as opt
+    cfg = flagship_cfg()
+    rng = np.random.RandomState(0)
+    shapes = {'conv1_w': (64, 3, 7, 7), 'res_conv1_bn_s': (64,),
+              'res2_0_branch2a_w': (64, 64, 1, 1), 'pps0_fc_w': (128, 751),
+              'pps0_fc_b': (751,), 'crm_fc8c_w': (3968, 751)}
+    params = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    meta = opt.make_param_meta(params, cfg)
+    sides = {}
+    for d in ('cpu', dev):
+        p = {k: torch.from_numpy(v).to(d) for k, v in params.items()}
+        st = opt.init_opt_state(p, 'iter', ITER_SIZE)
+        for step in range(ITER_STEPS):
+            g_rng = np.random.RandomState(10 + step)
+            grads = {k: torch.from_numpy(
+                (g_rng.randn(*s) * 10.0 ** g_rng.randint(-3, 2)).astype(
+                    np.float32)).to(d) for k, s in shapes.items()}
+            p, st = opt.sgd_update(p, grads, st, 0.01 * (step + 1), meta,
+                                   flavor='iter', iter_size=ITER_SIZE,
+                                   num_devices=1)
+        sides[str(d)] = (p, st)
+    (cp, cs), (gp, gs) = sides['cpu'], sides[str(dev)]
+    bad = [k for k in shapes
+           if not torch.equal(cp[k], gp[k].cpu())
+           or not torch.equal(cs['momentum'][k], gs['momentum'][k].cpu())
+           or not torch.equal(cs['acmgrad'][k], gs['acmgrad'][k].cpu())]
+    if bad:
+        raise AssertionError('ITER_SIZE {}: card != CPU at {}'.format(
+            ITER_SIZE, bad))
+    acm = torch.from_numpy(np.random.RandomState(1).randn(1 << 22).astype(
+        np.float32) * 3.0)
+    old_card = (acm.to(dev) / float(ITER_SIZE)).cpu()
+    new_card = (acm.to(dev) / opt.as_scalar(float(ITER_SIZE),
+                                            acm.to(dev))).cpu()
+    return {'steps': ITER_STEPS, 'iter_size': ITER_SIZE, 'bitwise': True,
+            'elements': int(sum(v.size for v in params.values())),
+            'python_float_divide_ulps_apart':
+                int((old_card != acm / float(ITER_SIZE)).sum()),
+            'tensor_divide_ulps_apart': int((new_card != acm / float(
+                ITER_SIZE)).sum()),
+            'divide_elements': int(acm.numel())}
+
+
+def _tool_json_keys(name, got, want):
+    if set(got) != want:
+        raise AssertionError('{}: keys {} != the JAX tool\'s {}'.format(
+            name, sorted(got), sorted(want)))
+
+
+def phase_tools(dev, bare_ms, int8_stacked):
+    """The measurement tools of pps_tpu_torch/tools at full width, counts
+    cut: each run in process through main(argv), trace_top_ops as a child
+    process (``python -m``), bench_serving --load with its own daemon;
+    every tool's JSON with the JAX tool's keys and its gates.
+
+    Order: the tools that work on the host while the trace child starts
+    and traces; bench_int8 and bench_distmat (the card's work, little of
+    the host's) beside the child's export and analysis; then the rest one
+    at a time, the host-bound step first; the load bench's daemon starts
+    up beside the IVF and e2e tools, and the load levels run last."""
+    import torch
+    from pps_tpu_torch.kernels import LAUNCH_COUNTS_ENV
+    from pps_tpu_torch.tools import (bench_distmat, bench_int8,
+                                     bench_rerank, bench_serving,
+                                     data_loader_benchmark,
+                                     profile_train_step)
+    work = os.path.join(ROOT, 'build', 'chip_smoke_tools')
+    logs = os.path.join(ROOT, 'build', 'chip_smoke_logs')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    seconds = {}
+    report = {}
+
+    def run(name, fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        print('tools: {} {} s'.format(name, seconds[name]), file=sys.stderr,
+              flush=True)
+        return out
+
+    load_args = bench_serving.parse_args([
+        '--load', '--load-concurrency', '1,4', '--load-duration', '3',
+        '--load-warmup', '1', '--load-modes', 'exact', '--load-workdir',
+        os.path.join(work, 'load'), '--device', str(dev)])
+    trace_log = os.path.join(logs, 'tools_trace_top_ops.log')
+    t_child = time.perf_counter()
+    with open(trace_log, 'w') as log:
+        child = subprocess.Popen(
+            [sys.executable, '-m', 'pps_tpu_torch.tools.trace_top_ops',
+             '--steps', '3', '--trace-dir', os.path.join(work, 'trace'),
+             '--device', str(dev)], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT, env=_child_env('trace_top_ops'))
+    daemon = None
+    try:
+        report['iter_size'] = run('iter_size', iter_size_agree, dev)
+        report['data_loader_benchmark'] = run(
+            'data_loader_benchmark', data_loader_benchmark.main,
+            ['--batches', '5', '--workers', '2'])
+        nq, ng = TOOLS_RERANK
+        rr = run('bench_rerank', bench_rerank.main,
+                 ['--nq', str(nq), '--ng', str(ng)])
+        if rr['share_apart_dev_native'] > RERANK_FLIP_SHARE:
+            raise AssertionError('bench_rerank: {} of the entries '
+                                 'apart'.format(
+                                     rr['share_apart_dev_native']))
+        report['bench_rerank'] = rr
+        run('bench_serving_load_files', bench_serving.load_files,
+            load_args, dev)
+        # the child prints 'traced ...' when its device work is over
+        while child.poll() is None and not any(
+                ln.startswith('traced ') for ln in _read(trace_log)):
+            if time.perf_counter() - t_child > 600:
+                raise AssertionError('trace_top_ops traced nothing in 600 s')
+            time.sleep(0.2)
+        seconds['trace_top_ops_traced'] = round(
+            time.perf_counter() - t_child, 2)
+
+        i8 = run('bench_int8', bench_int8.main, [], iters=3, warmup=2)
+        _tool_json_keys('bench_int8', i8, BENCH_INT8_KEYS)
+        if i8['int8_cosine_vs_bf16_min'] < INT8_MIN_COS:
+            raise AssertionError('bench_int8 cosine {}'.format(
+                i8['int8_cosine_vs_bf16_min']))
+        i8['test_int8_stacked_imgs_per_s'] = int8_stacked
+        report['bench_int8'] = i8
+        report['bench_distmat'] = run('bench_distmat', bench_distmat.main,
+                                      [], iters=3)
+        rc = child.wait(600)
+        seconds['trace_top_ops_child'] = round(
+            time.perf_counter() - t_child, 2)
+
+        pts = run('profile_train_step', profile_train_step.main,
+                  ['--iters', '3'])
+        pts['train_phase_bare_ms'] = bare_ms
+        report['profile_train_step'] = pts
+        report['bench_exact_scan'] = tool_exact_scan(run)
+        report['bench_serving'] = tool_serving(run, seconds, dev)
+        # the load bench's daemon starts up beside the next two tools; it
+        # inherits this process's environment, so its launch counts go to
+        # a child file of this phase
+        os.environ[LAUNCH_COUNTS_ENV] = _child_env('serve_load')[
+            LAUNCH_COUNTS_ENV]
+        try:
+            daemon = bench_serving.start_first_daemon(load_args, dev)
+        finally:
+            del os.environ[LAUNCH_COUNTS_ENV]
+        report['bench_ivf_recall'] = tool_ivf_recall(run, work)
+        report['bench_train_e2e'] = tool_train_e2e(run, work)
+        report['bench_serving_load'] = tool_serving_load(
+            run, load_args, daemon, dev, work, logs)
+    finally:
+        for proc in (child, daemon and daemon[0]):
+            if proc and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    lines = _read(trace_log)
+    if rc != 0:
+        raise AssertionError('trace_top_ops exited {}:\n{}'.format(
+            rc, ''.join(lines[-30:])))
+    trace = json.loads([ln for ln in lines
+                        if ln.startswith('{"path"')][-1])
+    if not trace['top'] or any(not r[0] for r in trace['top']) or \
+            sum(r[2] for r in trace['top']) > 1.0 + 1e-9:
+        raise AssertionError('trace_top_ops top rows: {}'.format(
+            trace['top']))
+    report['trace_top_ops'] = trace
+    shutil.rmtree(work, ignore_errors=True)
+    emit('tools', seconds=seconds, **report)
+
+
+def tool_exact_scan(run):
+    """bench_exact_scan; its exact variants against stream4096."""
+    import torch
+    from pps_tpu_torch.tools import bench_exact_scan
+    scan = {}
+    es = run('bench_exact_scan', bench_exact_scan.main, ['--iters', '3'],
+             results=scan)
+    _tool_json_keys('bench_exact_scan', es, EXACT_SCAN_KEYS)
+    ref_d2, ref_i = scan['stream4096']
+    es['held'] = {}
+    for name, (d2, ii) in scan.items():
+        if name == 'flat_int8':  # approximate by design: reported only
+            continue
+        es['held'][name] = check_topk('bench_exact_scan ' + name,
+                                      (np.sqrt(d2), ii),
+                                      (np.sqrt(ref_d2), ref_i))
+    del scan
+    torch.cuda.empty_cache()
+    return es
+
+
+def tool_serving(run, seconds, dev):
+    """bench_serving's one query; its top-k against RetrievalIndex.search
+    over the same rows."""
+    import torch
+    from pps_tpu_torch.engine.serving import RetrievalIndex
+    from pps_tpu_torch.tools import bench_serving
+    sq = {}
+    sv = run('bench_serving', bench_serving.main, ['--iters', '3'],
+             results=sq)
+    _tool_json_keys('bench_serving', sv, SERVING_KEYS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = torch.cat([r for _, r in bench_serving.gallery_rows(
+        sv['gallery_size'], sv['dim'], dev)])
+    index = RetrievalIndex(rows, list(range(sv['gallery_size'])), int8=True,
+                           device=dev)
+    del rows
+    want = index.search(sq['query'], sv['topk'])
+    sv['held_vs_retrieval_index'] = check_topk(
+        'bench_serving vs RetrievalIndex.search',
+        (sq['dists'], sq['indices']), want)
+    del index
+    torch.cuda.empty_cache()
+    seconds['bench_serving_check'] = round(time.perf_counter() - t0, 2)
+    return sv
+
+
+def tool_ivf_recall(run, work):
+    """bench_ivf_recall; every cell probed equals the exact top-k wherever
+    the k-th rank is not a near-tie (the probe sums each distance in
+    another order)."""
+    from pps_tpu_torch.ops import ivf as ivf_ops
+    from pps_tpu_torch.tools import bench_ivf_recall
+    nlist = ivf_ops.default_nlist(TOOLS_IVF_IDS * TOOLS_IVF_PER_ID)
+    probes = {}
+    iv = run('bench_ivf_recall', bench_ivf_recall.main, [
+        '--n-ids', str(TOOLS_IVF_IDS), '--per-id', str(TOOLS_IVF_PER_ID),
+        '--train-steps', '5', '--nprobes', '2,8,{}'.format(nlist),
+        '--workdir', os.path.join(work, 'ivf')], results=probes)
+    _tool_json_keys('bench_ivf_recall', iv, IVF_RECALL_KEYS)
+    if iv['nlist'] != nlist:
+        raise AssertionError('bench_ivf_recall: {} cells'.format(
+            iv['nlist']))
+    iv['full_probe_held'] = check_topk('bench_ivf_recall full probe',
+                                       probes[nlist], probes['exact'])
+    return iv
+
+
+def tool_train_e2e(run, work):
+    from pps_tpu_torch.tools import bench_train_e2e
+    e2e = run('bench_train_e2e', bench_train_e2e.main, [
+        '--n-ids', str(TOOLS_E2E_IDS), '--per-id', str(TOOLS_E2E_PER_ID),
+        '--epochs', '1', '--data-dir', os.path.join(work, 'e2e')])
+    if not e2e['final'] or not os.path.exists(e2e['final']):
+        raise AssertionError('bench_train_e2e: no final checkpoint')
+    return e2e
+
+
+def tool_serving_load(run, load_args, daemon, dev, work, logs):
+    """bench_serving --load on the daemon started earlier: every row with
+    samples, no errors and the JAX tool's keys."""
+    from pps_tpu_torch.tools import bench_serving
+    ld = run('bench_serving_load', bench_serving.run_load, load_args, dev,
+             first=daemon)
+    _tool_json_keys('bench_serving --load', ld, LOAD_KEYS)
+    with open(ld['loadbench']) as f:
+        load_rows = json.load(f)['results']
+    for row in load_rows:
+        _tool_json_keys('bench_serving --load row', row, LOAD_ROW_KEYS)
+        if row['n'] == 0 or row['errors']:
+            raise AssertionError('bench_serving --load row {}'.format(row))
+    shutil.copyfile(os.path.join(work, 'load', 'serve_exact.log'),
+                    os.path.join(logs, 'tools_serve_load.log'))
+    shutil.rmtree(os.path.join(work, 'load'), ignore_errors=True)
+    return load_rows
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == '--dp-rank':
         return dp_rank_main(sys.argv[2], sys.argv[3])  # a rank's process
@@ -4437,8 +4738,8 @@ def main():
     del fpn_rec
     torch.cuda.empty_cache()
     driven('fold', phase_fold, dev, market_pkl, decode)
-    driven('test_int8', phase_test_int8, dev, out_root, market_pkl, decode,
-           market_feats, market_run)
+    int8_stacked = driven('test_int8', phase_test_int8, dev, out_root,
+                          market_pkl, decode, market_feats, market_run)
     driven('export', phase_export, dev, out_root, market_pkl, decode)
     shutil.rmtree(out_root, ignore_errors=True)  # ~2.5 GB of checkpoints
     torch.cuda.empty_cache()
@@ -4486,6 +4787,10 @@ def main():
     for d in (out_root, keep, os.path.join(ROOT, 'build',
                                            'chip_smoke_serve')):
         shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # part 6: the measurement tools, and ITER_SIZE's divide
+    driven('tools', phase_tools, dev, bare_ms, int8_stacked)
 
     for k in kernels:
         name = k['name']

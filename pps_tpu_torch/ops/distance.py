@@ -29,18 +29,36 @@ def pairwise_sq_dist_batched(x):
     return xx + xx.transpose(1, 2) - 2.0 * torch.bmm(x, x.transpose(1, 2))
 
 
-def euclidean_distmat(q, g, block_q=1024):
+def bf16_product(a, bt):
+    """a @ bt with both operands cast to bfloat16 and the products summed
+    in float32, giving float32.  On the card one bf16 tensor-core product
+    with a float32 output; on the CPU the bf16 values widened to float32
+    first (a product of two bf16 values is exact in float32), the same
+    arithmetic."""
+    a, bt = a.to(torch.bfloat16), bt.to(torch.bfloat16)
+    if a.is_cuda:
+        return torch.mm(a, bt, out_dtype=torch.float32)
+    return a.float() @ bt.float()
+
+
+def euclidean_distmat(q, g, block_q=1024, fast=False):
     """Euclidean distance matrix [Nq, Ng]: sqrt of the expand formula
     clamped at 0 (the reference evaluator's compute_dist semantics).
+
+    fast=True casts the cross term's operands to bfloat16 and sums their
+    products in float32 (the JAX package's ``fast``); the norms stay
+    float32.
 
     Above ``SINGLE_BLOCK_MAX_ELEMS`` output elements the queries go in
     blocks of ``block_q`` so only one [block_q, Ng] set of intermediates
     lives at a time."""
     gg = torch.sum(g * g, dim=1)
+    gt = g.T.to(torch.bfloat16) if fast else g.T
 
     def one_block(qb):
         sq = torch.sum(qb * qb, dim=1, keepdim=True)
-        d2 = sq + gg[None, :] - 2.0 * (qb @ g.T)
+        cross = bf16_product(qb, gt) if fast else qb @ gt
+        d2 = sq + gg[None, :] - 2.0 * cross
         return torch.sqrt(torch.clamp(d2, min=0.0))
 
     nq, ng = q.shape[0], g.shape[0]

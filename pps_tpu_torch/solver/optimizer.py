@@ -131,6 +131,11 @@ def sgd_update(params, grads, opt_state, lr, meta, momentum=0.9,
     if flavor == 'iter':
         count = opt_state['count'] + 1
         apply_now = (count % iter_size) == 0
+        # a 0-d tensor on the params' device, so the card divides as the
+        # CPU does: CUDA turns division by a Python scalar into a product
+        # with its float32 reciprocal, which can differ by an ulp
+        n_acc = as_scalar(float(iter_size * num_devices),
+                          next(iter(params.values())))
         new_acm = {}
         for name, p in params.items():
             if frozen(name):
@@ -141,7 +146,7 @@ def sgd_update(params, grads, opt_state, lr, meta, momentum=0.9,
             lr_scale, is_bias, wd = meta[name]
             lr_mult = 2.0 if is_bias else 1.0
             acm = opt_state['acmgrad'][name] + grads[name]
-            g = acm / float(iter_size * num_devices)
+            g = acm / n_acc
             g = g + wd * p
             v = momentum * mom[name] + lr * lr_scale * lr_mult * g
             new_params[name] = torch.where(apply_now, p - v, p)

@@ -3,13 +3,18 @@
 
 Counts conv/FC multiply-adds x2 from the static cfg-derived specs; BN,
 pooling and elementwise work are left out (they are not matrix-unit
-work).  ``chip_smoke.py`` divides these counts by measured times for
-TFLOP/s and MFU.
+work).  ``chip_smoke.py`` and the measurement tools divide these counts
+by measured times for TFLOP/s and MFU, against the peaks below.
 """
 
 from pps_tpu_torch.models import heads as head_lib
 from pps_tpu_torch.models import resnet as resnet_lib
 from pps_tpu_torch.models.model import _depth_from_name
+
+# NVIDIA H100 SXM data sheet, dense (no sparsity), at the 700 W limit
+BF16_PEAK_FLOPS = 989e12   # bf16 tensor-core FLOP/s: the MFU yardstick
+INT8_PEAK_OPS = 1979e12    # int8 tensor-core OP/s
+HBM_BYTES_PER_S = 3.35e12  # device memory rate
 
 
 def _conv_flops(h, w, kh, kw, c_in, c_out, stride=1, groups=1):

@@ -634,3 +634,36 @@ def test_sharded_topk_on_the_card_equals_the_flat_route(cuda):
     wd, wi = flat_topk(q.to(cuda), g.to(cuda), k=20)
     np.testing.assert_array_equal(np.sort(i.cpu().numpy(), 1),
                                   np.sort(wi.cpu().numpy(), 1))
+
+
+def test_iter_flavor_card_equals_cpu_bitwise(cuda):
+    """The 'iter' SGD flavor (ITER_SIZE 3, one device) for 6 steps from the
+    same params and gradients: every param, momentum and accumulator on the
+    card bitwise equal to the CPU's.  The accumulated gradient is divided
+    by a tensor on its device; a Python float divisor becomes a product
+    with its float32 reciprocal on the card, an ulp off the quotient."""
+    from pps_tpu_torch.solver import optimizer as opt
+    cfg = flagship_cfg(scale=(32, 96), num_classes=11)
+    rng = np.random.RandomState(0)
+    shapes = {'conv1_w': (64, 3, 7, 7), 'res_conv1_bn_s': (64,),
+              'pps0_fc_w': (128, 10), 'pps0_fc_b': (10,)}
+    params = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    meta = opt.make_param_meta(params, cfg)
+    out = []
+    for dev in ('cpu', cuda):
+        p = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+        st = opt.init_opt_state(p, 'iter', 3)
+        for step in range(6):
+            g_rng = np.random.RandomState(10 + step)
+            grads = {k: torch.from_numpy(
+                g_rng.randn(*s).astype(np.float32)).to(dev)
+                for k, s in shapes.items()}
+            p, st = opt.sgd_update(p, grads, st, 0.01 * (step + 1), meta,
+                                   flavor='iter', iter_size=3, num_devices=1)
+        out.append((p, st))
+    (cp, cs), (gp, gs) = out
+    assert int(gs['count']) == int(cs['count']) == 6
+    for k in shapes:
+        assert torch.equal(gp[k].cpu(), cp[k]), k
+        assert torch.equal(gs['momentum'][k].cpu(), cs['momentum'][k]), k
+        assert torch.equal(gs['acmgrad'][k].cpu(), cs['acmgrad'][k]), k
