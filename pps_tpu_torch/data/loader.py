@@ -44,6 +44,7 @@ from pps_tpu_torch.data import minibatch as minibatch_lib
 from pps_tpu_torch.data.sampler import EpochSchedule, PermSampler, PKSampler
 from pps_tpu_torch.device import Transfer
 from pps_tpu_torch.parallel import mesh as mesh_lib
+from pps_tpu_torch.utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -198,11 +199,12 @@ class ReIDLoader(object):
             issued += 1
         try:
             for step in range(len(plan)):
-                while self._slots[step] is None:
-                    self._sem.acquire()
-                    if self._exc:
-                        raise RuntimeError('data loader worker failed') \
-                            from self._exc[0]
+                with trace.span('loader.wait'):
+                    while self._slots[step] is None:
+                        self._sem.acquire()
+                        if self._exc:
+                            raise RuntimeError('data loader worker failed') \
+                                from self._exc[0]
                 i, mode, scale, batch = self._slots[step]
                 self._slots[step] = None
                 # prepared-ahead depth; 0 = the consumer is starved

@@ -18,6 +18,8 @@ Host-to-device copies: ``Transfer`` (see there).
 import numpy as np
 import torch
 
+from pps_tpu_torch.utils import trace
+
 
 def resolve_device(device=None):
     """``device`` (default ``'cuda'``) as a torch.device; raises when it
@@ -54,17 +56,18 @@ class Transfer(object):
     def put(self, arrays):
         """A dict of arrays (or one array; numpy or CPU tensors) -> the
         same of device tensors, their copies started."""
-        one = not isinstance(arrays, dict)
-        host = {k: (v.contiguous() if torch.is_tensor(v)
-                    else torch.from_numpy(np.ascontiguousarray(v)))
-                for k, v in ({0: arrays} if one else arrays).items()}
-        if self._stream is None:
-            out = {k: v.to(self.device) for k, v in host.items()}
-        else:
-            with torch.cuda.stream(self._stream):
-                out = {k: v.pin_memory().to(self.device, non_blocking=True)
-                       for k, v in host.items()}
-        return out[0] if one else out
+        with trace.span('transfer.put'):
+            one = not isinstance(arrays, dict)
+            host = {k: (v.contiguous() if torch.is_tensor(v)
+                        else torch.from_numpy(np.ascontiguousarray(v)))
+                    for k, v in ({0: arrays} if one else arrays).items()}
+            if self._stream is None:
+                out = {k: v.to(self.device) for k, v in host.items()}
+            else:
+                with torch.cuda.stream(self._stream):
+                    out = {k: v.pin_memory().to(self.device, non_blocking=True)
+                           for k, v in host.items()}
+            return out[0] if one else out
 
     def ready(self, tensors):
         """``tensors`` (a dict or one tensor from ``put``), safe to use on

@@ -52,6 +52,7 @@ from pps_tpu_torch.parallel import collectives
 from pps_tpu_torch.parallel import eval_step as eval_step_lib
 from pps_tpu_torch.parallel import mesh as mesh_lib
 from pps_tpu_torch.utils.io import save_object
+from pps_tpu_torch.utils import trace
 from pps_tpu_torch.utils.timer import Timer
 
 logger = logging.getLogger(__name__)
@@ -133,81 +134,91 @@ def stream_extract(cfg, model, params, state, roidb, batch_size,
     rank decodes and embeds only its rows of every (tail-padded) global
     batch, and the features come back on every rank, in row order.
     """
-    decode_fn = decode_fn or transforms.decode_image
-    w, h = cfg.REID.SCALE
-    pixel_means = np.asarray(cfg.PIXEL_MEANS)
-    pre = (pixel_means, (h, w))
-    fns = {'f32': eval_step_lib.make_extract_fn(
-        model, flip_tta=flip_tta, device=model.device)}
-    if device_preproc:
-        fns['u8'] = eval_step_lib.make_extract_fn(
-            model, flip_tta=flip_tta, device_preproc=pre,
-            device=model.device)
-        fns['u8p'] = eval_step_lib.make_extract_fn(
-            model, flip_tta=flip_tta, device_preproc=pre,
-            device=model.device, padded_wire=True)
-    pad_hw = _pad_bucket(roidb) if device_preproc else None
-    transfer = Transfer(model.device)
-    u8_shape = []  # the first uniform raw shape pins the uint8 wire
+    with trace.span('extract'):
+        # from entry until the first batch is decoded
+        opening = trace.span('extract.start').__enter__()
+        decode_fn = decode_fn or transforms.decode_image
+        w, h = cfg.REID.SCALE
+        pixel_means = np.asarray(cfg.PIXEL_MEANS)
+        pre = (pixel_means, (h, w))
+        fns = {'f32': eval_step_lib.make_extract_fn(
+            model, flip_tta=flip_tta, device=model.device)}
+        if device_preproc:
+            fns['u8'] = eval_step_lib.make_extract_fn(
+                model, flip_tta=flip_tta, device_preproc=pre,
+                device=model.device)
+            fns['u8p'] = eval_step_lib.make_extract_fn(
+                model, flip_tta=flip_tta, device_preproc=pre,
+                device=model.device, padded_wire=True)
+        pad_hw = _pad_bucket(roidb) if device_preproc else None
+        transfer = Transfer(model.device)
+        u8_shape = []  # the first uniform raw shape pins the uint8 wire
 
-    def prep(start):
-        # the tail batch is padded with its last image, then each rank
-        # takes its rows of the global batch
-        idx = list(range(start, min(start + batch_size, len(roidb))))
-        idx += idx[-1:] * (batch_size - len(idx))
-        if mesh is not None and mesh.distributed:
-            idx = idx[slice(*mesh_lib.local_rows(mesh, batch_size,
-                                                 fold_model=True))]
-        ims = [decode_fn(roidb[j]['image']) for j in idx]
-        if pad_hw is not None and fits_bucket(ims, pad_hw):
-            return 'u8p', pad_to_bucket(ims, pad_hw)
-        if device_preproc and all(im.shape == ims[0].shape for im in ims):
-            # list append is atomic under the GIL; a racing second shape
-            # only sends that batch to the host path
-            if not u8_shape:
-                u8_shape.append(ims[0].shape)
-            if ims[0].shape == u8_shape[0]:
-                return 'u8', (np.stack(ims),)
-        out = np.empty((len(ims), h, w, 3), np.float32)
-        for i, im in enumerate(ims):
-            out[i] = transforms.prep_im_for_blob(im, pixel_means, (w, h))
-        return 'f32', (out,)
+        def prep(start):
+            # the tail batch is padded with its last image, then each rank
+            # takes its rows of the global batch
+            idx = list(range(start, min(start + batch_size, len(roidb))))
+            idx += idx[-1:] * (batch_size - len(idx))
+            if mesh is not None and mesh.distributed:
+                idx = idx[slice(*mesh_lib.local_rows(mesh, batch_size,
+                                                     fold_model=True))]
+            ims = [decode_fn(roidb[j]['image']) for j in idx]
+            if pad_hw is not None and fits_bucket(ims, pad_hw):
+                return 'u8p', pad_to_bucket(ims, pad_hw)
+            if device_preproc and all(im.shape == ims[0].shape for im in ims):
+                # list append is atomic under the GIL; a racing second shape
+                # only sends that batch to the host path
+                if not u8_shape:
+                    u8_shape.append(ims[0].shape)
+                if ims[0].shape == u8_shape[0]:
+                    return 'u8', (np.stack(ims),)
+            out = np.empty((len(ims), h, w, 3), np.float32)
+            for i, im in enumerate(ims):
+                out[i] = transforms.prep_im_for_blob(im, pixel_means, (w, h))
+            return 'f32', (out,)
 
-    starts = list(range(0, len(roidb), batch_size))
-    kinds = collections.Counter()
-    out, futs = [], deque()
-    pending = None  # features tensor
-    with ThreadPoolExecutor(max(1, _default_workers(num_workers))) as pool:
-        issued = 0
-        for _ in range(min(prefetch, len(starts))):
-            futs.append(pool.submit(prep, starts[issued]))
-            issued += 1
-        for _ in starts:
-            kind, arrays = futs.popleft().result()
-            if issued < len(starts):
+        starts = list(range(0, len(roidb), batch_size))
+        kinds = collections.Counter()
+        out, futs = [], deque()
+        pending = None  # features tensor
+        with ThreadPoolExecutor(max(1, _default_workers(num_workers))) as pool:
+            issued = 0
+            for _ in range(min(prefetch, len(starts))):
                 futs.append(pool.submit(prep, starts[issued]))
                 issued += 1
-            kinds[kind] += 1
-            dev = transfer.ready(transfer.put(dict(enumerate(arrays))))
-            feats = fns[kind](params, state, *[dev[i] for i in
-                                               range(len(arrays))])
-            if pending is not None:
+            for n in range(len(starts)):
+                if n:
+                    with trace.span('extract.decode_wait'):
+                        kind, arrays = futs.popleft().result()
+                else:
+                    kind, arrays = futs.popleft().result()
+                    opening.__exit__()
+                if issued < len(starts):
+                    futs.append(pool.submit(prep, starts[issued]))
+                    issued += 1
+                kinds[kind] += 1
+                dev = transfer.ready(transfer.put(dict(enumerate(arrays))))
+                feats = fns[kind](params, state, *[dev[i] for i in
+                                                   range(len(arrays))])
+                if pending is not None:
+                    with trace.span('extract.readback'):
+                        out.append(pending.cpu().numpy())
+                pending = feats
+        if pending is not None:
+            with trace.span('extract.readback'):
                 out.append(pending.cpu().numpy())
-            pending = feats
-    if pending is not None:
-        out.append(pending.cpu().numpy())
-    logger.info('stream_extract batch kinds: %s',
-                json.dumps({k: kinds[k] for k in ('u8p', 'u8', 'f32')}))
-    if not out:
-        return np.zeros((0, model.embedding_dim), np.float32)
-    local = np.concatenate(out, axis=0)
-    if mesh is not None and mesh.distributed:
-        # [world, batches, rows, E] -> global row order
-        full = collectives.gather_host_rows(local, mesh)
-        local = full.reshape((mesh.world_size, len(starts), -1) +
-                             full.shape[1:]).transpose(1, 0, 2, 3).reshape(
-                                 (-1,) + full.shape[1:])
-    return local[:len(roidb)]
+        logger.info('stream_extract batch kinds: %s',
+                    json.dumps({k: kinds[k] for k in ('u8p', 'u8', 'f32')}))
+        if not out:
+            return np.zeros((0, model.embedding_dim), np.float32)
+        local = np.concatenate(out, axis=0)
+        if mesh is not None and mesh.distributed:
+            # [world, batches, rows, E] -> global row order
+            full = collectives.gather_host_rows(local, mesh)
+            local = full.reshape((mesh.world_size, len(starts), -1) +
+                                 full.shape[1:]).transpose(1, 0, 2, 3).reshape(
+                                     (-1,) + full.shape[1:])
+        return local[:len(roidb)]
 
 
 def default_eval_batch(cfg, n_dev=1, batch_size=None):

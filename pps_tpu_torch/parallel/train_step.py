@@ -35,6 +35,7 @@ from pps_tpu_torch.device import resolve_device
 from pps_tpu_torch.parallel import collectives
 from pps_tpu_torch.parallel import mesh as mesh_lib
 from pps_tpu_torch.solver import optimizer as opt_lib
+from pps_tpu_torch.utils import trace
 
 
 def _rank_rows(x, mesh, levels=1):
@@ -124,57 +125,59 @@ def make_train_step(model, cfg, meta, trainable=None, device=None,
 
     def step(train_state, batch, lr, loss_scale_factor, generator,
              draws=None):
-        draws = draws or {}
-        if mesh is not None:
-            draws = global_draws(batch, draws, generator)
-        params, state = train_state['params'], train_state['state']
-        if 'data_u8' in batch:
-            data = aug_lib.augment_batch(
-                generator, batch['data_u8'], batch['flipped'], aug_spec,
-                pixel_means, params=draws.get('augment'),
-                valid_hw=batch.get('valid_hw'))
-        else:
-            data = batch['data']
-        names = [k for k in params
-                 if trainable is None or trainable.get(k, True)]
-        leaves = dict(params)
-        for k in names:
-            leaves[k] = params[k].detach().requires_grad_(True)
-        lsf = opt_lib.as_scalar(loss_scale_factor, data)
-        # a step differentiates whatever the caller's grad mode is
-        with torch.enable_grad(), collectives.data_parallel(mesh):
-            total, (updates, logs) = model.train_forward(
-                leaves, state, {'data': data,
-                                'labels_int32': batch['labels_int32'],
-                                'labels_oh': batch['labels_oh']},
-                generator, lsf, dropout_mask=draws.get('dropout_mask'))
-            # a param the loss does not reach (below a FREEZE_AT detach)
-            # gets a zero gradient, as under jax.grad
-            grads = torch.autograd.grad(total, [leaves[k] for k in names],
-                                        allow_unused=True)
-        grads = {k: torch.zeros_like(params[k]) if g is None else g
-                 for k, g in zip(names, grads)}
-        if mesh is not None:
-            # the objective is the sum of the ranks' losses: a replicated
-            # param's gradient sums over every rank, a class slice's over
-            # the ranks that hold it (the data group)
-            sharded = mesh_lib.placed_class_names(
-                mesh, params, model.head_spec['num_logits'])
-            collectives.all_reduce_flat_(
-                [g for k, g in grads.items() if k not in sharded], mesh)
-            collectives.all_reduce_flat_(
-                [g for k, g in grads.items() if k in sharded], mesh,
-                axis='data')
-        new_params, new_opt = opt_lib.sgd_update(
-            params, grads, train_state['opt'], lr, meta, momentum=momentum,
-            flavor=flavor, iter_size=iter_size, num_devices=1,
-            trainable=trainable)
-        new_state = dict(state)
-        new_state.update({k: v.detach() for k, v in updates.items()})
-        logs = {k: v.detach() for k, v in logs.items()}
-        logs['lr'] = opt_lib.as_scalar(lr, data)
-        return ({'params': new_params, 'state': new_state, 'opt': new_opt},
-                logs)
+        # the host time to issue the step (it never syncs)
+        with trace.span('train_step'):
+            draws = draws or {}
+            if mesh is not None:
+                draws = global_draws(batch, draws, generator)
+            params, state = train_state['params'], train_state['state']
+            if 'data_u8' in batch:
+                data = aug_lib.augment_batch(
+                    generator, batch['data_u8'], batch['flipped'], aug_spec,
+                    pixel_means, params=draws.get('augment'),
+                    valid_hw=batch.get('valid_hw'))
+            else:
+                data = batch['data']
+            names = [k for k in params
+                     if trainable is None or trainable.get(k, True)]
+            leaves = dict(params)
+            for k in names:
+                leaves[k] = params[k].detach().requires_grad_(True)
+            lsf = opt_lib.as_scalar(loss_scale_factor, data)
+            # a step differentiates whatever the caller's grad mode is
+            with torch.enable_grad(), collectives.data_parallel(mesh):
+                total, (updates, logs) = model.train_forward(
+                    leaves, state, {'data': data,
+                                    'labels_int32': batch['labels_int32'],
+                                    'labels_oh': batch['labels_oh']},
+                    generator, lsf, dropout_mask=draws.get('dropout_mask'))
+                # a param the loss does not reach (below a FREEZE_AT detach)
+                # gets a zero gradient, as under jax.grad
+                grads = torch.autograd.grad(total, [leaves[k] for k in names],
+                                            allow_unused=True)
+            grads = {k: torch.zeros_like(params[k]) if g is None else g
+                     for k, g in zip(names, grads)}
+            if mesh is not None:
+                # the objective is the sum of the ranks' losses: a replicated
+                # param's gradient sums over every rank, a class slice's over
+                # the ranks that hold it (the data group)
+                sharded = mesh_lib.placed_class_names(
+                    mesh, params, model.head_spec['num_logits'])
+                collectives.all_reduce_flat_(
+                    [g for k, g in grads.items() if k not in sharded], mesh)
+                collectives.all_reduce_flat_(
+                    [g for k, g in grads.items() if k in sharded], mesh,
+                    axis='data')
+            new_params, new_opt = opt_lib.sgd_update(
+                params, grads, train_state['opt'], lr, meta, momentum=momentum,
+                flavor=flavor, iter_size=iter_size, num_devices=1,
+                trainable=trainable)
+            new_state = dict(state)
+            new_state.update({k: v.detach() for k, v in updates.items()})
+            logs = {k: v.detach() for k, v in logs.items()}
+            logs['lr'] = opt_lib.as_scalar(lr, data)
+            return ({'params': new_params, 'state': new_state, 'opt': new_opt},
+                    logs)
 
     step.device = device
     step.mesh = mesh

@@ -24,6 +24,8 @@ params' device; no step reads a value back to the host.
 
 import torch
 
+from pps_tpu_torch.utils import trace
+
 NEW_PARAM_MARKERS = ('bpm', 'apm', 'crm', 'ekc', 'pps', 'youtu')
 
 
@@ -121,64 +123,65 @@ def sgd_update(params, grads, opt_state, lr, meta, momentum=0.9,
     trainable: optional {name: bool}; frozen params and their momentum
     (and accumulators) pass through unchanged.
     """
-    new_params, new_mom = {}, {}
-    mom = opt_state['momentum']
-    lr = as_scalar(lr, next(iter(params.values())))
+    with trace.span('optimizer.sgd'):
+        new_params, new_mom = {}, {}
+        mom = opt_state['momentum']
+        lr = as_scalar(lr, next(iter(params.values())))
 
-    def frozen(name):
-        return trainable is not None and not trainable.get(name, True)
+        def frozen(name):
+            return trainable is not None and not trainable.get(name, True)
 
-    if flavor == 'iter':
-        count = opt_state['count'] + 1
-        apply_now = (count % iter_size) == 0
-        # a 0-d tensor on the params' device, so the card divides as the
-        # CPU does: CUDA turns division by a Python scalar into a product
-        # with its float32 reciprocal, which can differ by an ulp
-        n_acc = as_scalar(float(iter_size * num_devices),
-                          next(iter(params.values())))
-        new_acm = {}
+        if flavor == 'iter':
+            count = opt_state['count'] + 1
+            apply_now = (count % iter_size) == 0
+            # a 0-d tensor on the params' device, so the card divides as the
+            # CPU does: CUDA turns division by a Python scalar into a product
+            # with its float32 reciprocal, which can differ by an ulp
+            n_acc = as_scalar(float(iter_size * num_devices),
+                              next(iter(params.values())))
+            new_acm = {}
+            for name, p in params.items():
+                if frozen(name):
+                    new_params[name] = p
+                    new_mom[name] = mom[name]
+                    new_acm[name] = opt_state['acmgrad'][name]
+                    continue
+                lr_scale, is_bias, wd = meta[name]
+                lr_mult = 2.0 if is_bias else 1.0
+                acm = opt_state['acmgrad'][name] + grads[name]
+                g = acm / n_acc
+                g = g + wd * p
+                v = momentum * mom[name] + lr * lr_scale * lr_mult * g
+                new_params[name] = torch.where(apply_now, p - v, p)
+                new_mom[name] = torch.where(apply_now, v, mom[name])
+                new_acm[name] = torch.where(apply_now, torch.zeros_like(acm),
+                                            acm)
+            return new_params, {'momentum': new_mom, 'acmgrad': new_acm,
+                                'count': count}
+
         for name, p in params.items():
             if frozen(name):
                 new_params[name] = p
                 new_mom[name] = mom[name]
-                new_acm[name] = opt_state['acmgrad'][name]
                 continue
             lr_scale, is_bias, wd = meta[name]
-            lr_mult = 2.0 if is_bias else 1.0
-            acm = opt_state['acmgrad'][name] + grads[name]
-            g = acm / n_acc
-            g = g + wd * p
-            v = momentum * mom[name] + lr * lr_scale * lr_mult * g
-            new_params[name] = torch.where(apply_now, p - v, p)
-            new_mom[name] = torch.where(apply_now, v, mom[name])
-            new_acm[name] = torch.where(apply_now, torch.zeros_like(acm),
-                                        acm)
-        return new_params, {'momentum': new_mom, 'acmgrad': new_acm,
-                            'count': count}
-
-    for name, p in params.items():
-        if frozen(name):
-            new_params[name] = p
-            new_mom[name] = mom[name]
-            continue
-        lr_scale, is_bias, wd = meta[name]
-        g = grads[name]
-        if is_bias:
-            g = 2.0 * g  # bias 2x LR via the gradient
-        elif wd > 0:
-            g = g + wd * p
-        if flavor == 'standard':
-            v = momentum * mom[name] + lr * lr_scale * g
-            new_params[name] = p - v
-        elif flavor == 'pt':
-            v = momentum * mom[name] + g
-            new_params[name] = p - lr * lr_scale * v
-        else:
-            raise ValueError(flavor)
-        new_mom[name] = v
-    out = {k: v for k, v in opt_state.items() if k != 'momentum'}
-    out['momentum'] = new_mom
-    return new_params, out
+            g = grads[name]
+            if is_bias:
+                g = 2.0 * g  # bias 2x LR via the gradient
+            elif wd > 0:
+                g = g + wd * p
+            if flavor == 'standard':
+                v = momentum * mom[name] + lr * lr_scale * g
+                new_params[name] = p - v
+            elif flavor == 'pt':
+                v = momentum * mom[name] + g
+                new_params[name] = p - lr * lr_scale * v
+            else:
+                raise ValueError(flavor)
+            new_mom[name] = v
+        out = {k: v for k, v in opt_state.items() if k != 'momentum'}
+        out['momentum'] = new_mom
+        return new_params, out
 
 
 @torch.no_grad()
